@@ -1,0 +1,22 @@
+"""Device selection shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """Canonical ``torch.device`` for ``device``.  Only ``cpu`` and ``cuda``
+    devices are accepted, and a CUDA device raises when no card is
+    present: an entry point asked to run on the card never carries on on
+    the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run the plain versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(dev)!r} (cpu or cuda)")
+    return dev
