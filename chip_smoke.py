@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,27 +7,50 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit; TF32 is switched off for matmuls and cuDNN (no matmul or
-   convolution runs on this path, so this only pins the setting).
-2. build the step kernel (``src/repro_torch/csrc/q15_step.cu``) with nvcc.
-3. kernel vs plain on the card: S = 131,072 streams at paper width, low-
-   and full-rank, deployed / calibrated / naive activation storage, about a
-   third of the rows masked, 128 chained steps.  The kernel must equal the
-   plain torch step bitwise every step; the plain step on the card must
-   equal the CPU plain step bitwise on 4,096 rows, and the scalar
-   ``QRuntime`` must agree bitwise on 64 rows.
-4. the main path: ``StreamingEngine.from_artifact`` on ``cuda`` with
-   131,072 slots over an artifact (seeded PTQ at ``fastgrnn_har`` width,
-   round-tripped through ``.fgar``); 131,072 + 1,024 synthetic-HAPT streams
-   (some two windows long, some detached mid-window, the extra ones pending
-   until slots free), drained.  Launches must equal advancing ticks,
-   sampled streams' events must be bitwise those of the CPU engine and of
-   the scalar ``QRuntime``, and no hidden-state byte may go host-to-device.
-5. a profiled steady window of the main path (torch.profiler, host and
+   convolution runs on these paths, so this only pins the setting).
+2. build both step kernels (``src/repro_torch/csrc/q15_step.cu``, K1, and
+   ``q15_step_dense.cu``, K2) with nvcc, one process per source, started
+   together.
+3. K1 vs plain on the card: S = 131,072 streams at paper width, low- and
+   full-rank, deployed / calibrated / naive activation storage, about a
+   third of the rows masked, 2 % of them driven into LUT saturation, 128
+   chained steps.  The kernel must equal the plain torch step bitwise every
+   step; the plain step on the card must equal the CPU plain step bitwise
+   on 4,096 rows, and the scalar ``QRuntime`` must agree bitwise on 64 rows.
+4. K2 vs plain on the card: the same inputs for the dense layout (low and
+   full rank); K2 must equal ``qstep.step_dense`` bitwise every step and
+   the plain dense step on the card the CPU one on 4,096 rows; K2 must be
+   within 1e-6 of K1 after one step in deployed storage (the reference's
+   bound for its dense layout) on 4,096 rows drawn like the reference's
+   test; K2's runtime-width instantiation is checked at H = 12, d = 5.
+5. the single-engine main path: ``StreamingEngine.from_artifact`` on
+   ``cuda`` with 131,072 slots over an artifact (seeded PTQ at
+   ``fastgrnn_har`` width, round-tripped through ``.fgar``); 131,072 +
+   1,024 synthetic-HAPT streams (some two windows long, some detached
+   mid-window, the extra ones pending until slots free), drained.  K1
+   launches must equal advancing ticks, sampled streams' events must be
+   bitwise those of the CPU engine and of the scalar ``QRuntime``, and no
+   hidden-state byte may go host-to-device.
+6. a profiled steady window of that path (torch.profiler, host and
    device): the step kernel's device time and the device's busy share.
-6. time the kernel and the plain step per launch at S = 131,072 (CUDA
-   events over launches queued behind a sleep, after warm-up, over input
-   sets larger than L2; the host's enqueue cost beside them) and the
-   HBM bound.
+7. the fleet main path on K2: ``FleetEngine.from_artifact`` with 4 shards
+   x 32,768 slots, ``mxu=True``, the same streams, a live migration of 64
+   streams and a decommission / recommission of one shard mid-run.  K2
+   launches must equal the ticks that advanced (one device group), no
+   h-state byte may go host-to-device on a steady tick, sampled streams'
+   events must be bitwise those of a CPU fleet on ``step_dense``, and at
+   least 99.9 % of the windows' predictions must equal the K1 engine's.
+   Then a profiled steady window of the fleet, as in phase 6.
+8. the same fleet on K1 (``mxu=False``): every stream's events must be
+   bitwise those of the single engine (shard-count invariance on the card).
+9. failover: 4 shards x 4,096 slots on K2, snapshots every 16 ticks, one
+   crash at each tick phase; the events must be bitwise those of the same
+   run without crashes.  The width is cut from 131,072 because every
+   snapshot encodes each live stream in Python.
+10. time K1 and K2 and their plain steps per launch at S = 131,072 (CUDA
+    events over launches queued behind a sleep, after warm-up, over input
+    sets larger than L2; the profiler's device time and the host's enqueue
+    cost beside them) and their HBM bound.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -52,8 +75,20 @@ SCALAR_ROWS = 64          # rows re-run by the scalar QRuntime
 SLOTS = 131_072           # engine slots on the main path
 EXTRA = 1_024             # streams that wait pending for a free slot
 DETACH_TICK = 60          # mid-window detach point
-SAMPLED = 256             # streams replayed on the CPU engine
+SAMPLED = 256             # streams replayed on the CPU engine / fleet
 SCALAR_STREAMS = 64       # of those, replayed by the scalar QRuntime
+K1K2_ROWS = 4_096         # rows of the K2-vs-K1 one-step check
+SHARDS = 4                # fleet shards on the fleet main path
+SHARD_SLOTS = SLOTS // SHARDS
+MIGRATE_TICK = 80         # fleet: live migration of MIGRATED streams
+MIGRATED = 64
+DECOMMISSION_TICK = 140   # fleet: shard 1 drained ...
+RECOMMISSION_TICK = 160   # ... and returned to routing
+MIN_AGREEMENT = 0.999     # K2 fleet windows whose prediction equals K1's
+FO_SLOTS = 4_096          # failover: slots per shard (4 shards)
+FO_SNAPSHOT_EVERY = 16
+FO_CRASHES = ((7, "mid_dispatch", 1), (13, "pre_tick", 2),
+              (20, "post_emit", 0))
 PROFILE_WARM = 10         # untraced ticks before the profiled window
 PROFILE_TICKS = 20        # ticks in the profiled steady window
 TIMING_SETS = 8           # input sets cycled by the timing phase (> L2)
@@ -112,13 +147,20 @@ def environment(torch) -> str:
     return card
 
 
-def build() -> float:
+def build() -> None:
+    """Both kernels, one nvcc each, started together; each one's build time
+    and what ptxas reports of its registers, shared memory and spills."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    lib = _build.build("q15_step")
-    dt = time.perf_counter() - t0
-    print(f"build: {lib.name} in {dt:.2f} s")
-    return dt
+    built = _build.build_all(["q15_step", "q15_step_dense"])
+    wall = time.perf_counter() - t0
+    for name, (lib, dt, log) in built.items():
+        print(f"build: {lib.name} in {dt:.2f} s")
+        for line in log.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "stack frame")):
+                print(f"  {line.strip()}")
+    print(f"build: both kernels in {wall:.2f} s (parallel nvcc)")
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +233,89 @@ def kernel_vs_plain(torch, windows, dev) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: K2 (dense layout) vs plain, and vs K1
+# ---------------------------------------------------------------------------
+
+def dense_vs_plain(torch, np, dev) -> float:
+    """K2 against ``qstep.step_dense`` bitwise over chained steps at the
+    main path's S, the plain dense step on the card against the CPU's, K2
+    within 1e-6 of K1 after one step, and K2's runtime-width code path."""
+    from repro_torch import weights
+    from repro_torch.core.quantization import QuantConfig, quantize_params
+    from repro_torch.kernels.fastgrnn_cell import qstep
+    from repro_torch.kernels.fastgrnn_cell.kernel import make_fastgrnn_step
+
+    def model(low_rank, **kw):
+        qp = quantize_params(weights.random_params(SEED, low_rank=low_rank,
+                                                   **kw), QuantConfig())
+        return qstep.StepWeights.from_quantized(qp)
+
+    max_err = 0.0
+    for low_rank in (True, False):
+        t0 = time.perf_counter()
+        sw = model(low_rank)
+        k_dev = make_fastgrnn_step(sw, device=dev, mxu=True)
+        k_cpu = make_fastgrnn_step(sw, device="cpu", mxu=True)
+        H, d = sw.hidden_dim, sw.input_dim
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        h_k = h_p = 0.5 * torch.randn(S_KERNEL, H, generator=g, device=dev)
+        h_c = h_k[:CPU_ROWS].cpu()
+        for t in range(STEPS):
+            big = torch.rand(S_KERNEL, 1, generator=g, device=dev) < 0.02
+            x = torch.randn(S_KERNEL, d, generator=g, device=dev) \
+                * torch.where(big, 200.0, 1.0)
+            m = torch.rand(S_KERNEL, generator=g, device=dev) >= 1 / 3
+            h_next = k_dev(h_k, x, m)
+            if t == 0 and not k_dev.fixed_width(h_k, h_next):
+                fail("K2 did not run its fixed-width code at paper width")
+            h_k = h_next
+            h_p = k_dev.plain(h_p, x, m)
+            if not bits_equal(h_k, h_p):
+                fail(f"K2 != plain dense (low_rank={low_rank}, step {t}): "
+                     f"{first_diff(h_k, h_p)}")
+            max_err = max(max_err, float((h_k - h_p).abs().max()))
+            h_c = k_cpu(h_c, x[:CPU_ROWS].cpu(), m[:CPU_ROWS].cpu())
+            if not bits_equal(h_p[:CPU_ROWS].cpu(), h_c):
+                fail(f"plain dense cuda != cpu (low_rank={low_rank}, step "
+                     f"{t}): {first_diff(h_p[:CPU_ROWS].cpu(), h_c)}")
+        torch.cuda.synchronize()
+        print(f"K2==plain dense bitwise: {'low' if low_rank else 'full'}-rank "
+              f"S={S_KERNEL} x {STEPS} steps (cpu plain {CPU_ROWS} rows) in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # one step against K1 in deployed storage, inputs drawn with numpy
+        # like the reference's test of its dense layout
+        rng = np.random.default_rng(SEED + 3)
+        h = torch.from_numpy((rng.normal(size=(K1K2_ROWS, H)) * 0.4)
+                             .astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.normal(size=(K1K2_ROWS, d))
+                             .astype(np.float32)).to(dev)
+        m = torch.ones(K1K2_ROWS, dtype=torch.bool, device=dev)
+        k1 = make_fastgrnn_step(sw, device=dev)
+        diff = float((k_dev(h, x, m) - k1(h, x, m)).abs().max())
+        if not diff <= 1e-6:
+            fail(f"K2 vs K1 after one step: max |diff| {diff} > 1e-6 "
+                 f"(low_rank={low_rank})")
+        print(f"K2 vs K1 one step, deployed storage, {K1K2_ROWS} rows: max "
+              f"|diff| {diff:.3e} <= 1e-6")
+
+    # the runtime-width instantiation (any width but the paper's)
+    sw = model(True, hidden_dim=12, input_dim=5)
+    k_dev = make_fastgrnn_step(sw, device=dev, mxu=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    h = 0.5 * torch.randn(CPU_ROWS, 12, generator=g, device=dev)
+    x = torch.randn(CPU_ROWS, 5, generator=g, device=dev)
+    m = torch.rand(CPU_ROWS, generator=g, device=dev) >= 1 / 3
+    out = k_dev(h, x, m)
+    if k_dev.fixed_width(h, out) or not bits_equal(out, k_dev.plain(h, x, m)):
+        fail("K2 at H=12, d=5 (runtime-width code) != plain dense")
+    print(f"K2==plain dense bitwise at H=12, d=5 (runtime-width code), "
+          f"{CPU_ROWS} rows")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the single-engine main path
 # ---------------------------------------------------------------------------
 
 class Feeds:
@@ -322,10 +446,7 @@ def main_path(torch, np, dev):
         fail(f"steady tick moved h bytes: {steady}")
 
     # sampled streams: the CPU engine and the scalar runtime
-    step = (SLOTS + EXTRA) // SAMPLED
-    sample = sorted({k * step + (k % 16) for k in range(SAMPLED)}
-                    | {SLOTS + 1, SLOTS + EXTRA - 1})
-    sample = [i for i in sample if i < SLOTS + EXTRA]
+    sample = sample_ids()
     cpu = StreamingEngine.from_artifact(
         art, StreamingConfig(max_slots=len(sample), device="cpu",
                              batch_events=True))
@@ -346,26 +467,18 @@ def main_path(torch, np, dev):
         if [e[5] for e in got[f"s{i}"]] != logits:
             fail(f"stream s{i}: logits differ from the scalar QRuntime")
 
-    ms = np.array(ticks) * 1e3
     rate = st["stream_steps"] / wall
-    p50, p95, p99 = np.percentile(ms, [50, 95, 99])
     print(f"main path: {len(ids)} streams ({EXTRA} pending at attach) over "
           f"{SLOTS} slots, {st['ticks']} ticks, {st['stream_steps']} "
           f"stream-steps in {wall:.3f} s = {rate:,.0f} stream-steps/s; "
-          f"{len(ms)} step() calls: p50 {p50:.3f} ms, p95 {p95:.3f} ms, "
-          f"p99 {p99:.3f} ms, max {ms.max():.3f} ms; "
-          f"{int((ms > 20.0).sum())} over the 50 Hz budget of 20 ms; "
+          f"{len(ticks)} step() calls: {tick_stats(np, ticks)}; "
           f"set-up (attach) {setup:.1f} s")
-    print(f"main path: transfers {tr}; steady tick {steady}")
-    print("main path host phases (count, total ms, p50 us, p99 us): " +
-          "; ".join(f"{k} {v['count']} {v['total_us'] / 1e3:.1f} "
-                    f"{v['p50_us']:.1f} {v['p99_us']:.1f}"
-                    for k, v in obs.tracer.phase_stats().items()))
+    print_host("main path", tr, steady, obs.tracer)
     print(f"main path: {len(sample)} sampled streams bitwise equal to the "
           f"CPU engine, {SCALAR_STREAMS} to the scalar QRuntime")
     print("kernels: " + json.dumps([{"name": "q15_step", "launches": launches,
                                      "bitwise": True}]))
-    return launches, eng, feeds
+    return launches, eng, feeds, art, events
 
 
 # ---------------------------------------------------------------------------
@@ -399,11 +512,12 @@ def kernel_device_us(prof, name: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: a profiled steady window of the main path
+# phase 6: a profiled steady window of the single-engine main path
 # ---------------------------------------------------------------------------
 
-def profiled_window(torch, eng, feeds) -> dict | None:
-    """Refill the drained engine with one-window streams, step
+def profiled_window(torch, eng, feeds, kernel: str = "q15_step_kernel",
+                    label: str = "profiled window") -> dict | None:
+    """Refill the drained engine (or fleet) with one-window streams, step
     ``PROFILE_WARM`` ticks, then trace ``PROFILE_TICKS`` steady ticks
     (nothing admitted or emitted) with torch.profiler (host and device).
     The device busy share is the union of the trace's device intervals over
@@ -424,46 +538,305 @@ def profiled_window(torch, eng, feeds) -> dict | None:
         wall_us = (time.perf_counter() - t0) * 1e6
     evs = device_events(prof)
     if not evs:
-        print("profiled window: the trace holds no device event, so the "
-              "device busy share is not measured")
+        print(f"{label}: the trace holds no device event, so the device "
+              "busy share is not measured")
         return None
     busy = busy_us(evs)
     by_name = {}
     for e in evs:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    kern = kernel_device_us(prof, "q15_step_kernel")
-    print(f"profiled window ({PROFILE_TICKS} steady ticks, {SLOTS} active "
+    kern = kernel_device_us(prof, kernel)
+    print(f"{label} ({PROFILE_TICKS} steady ticks, {SLOTS} active "
           f"slots): host wall {wall_us:.1f} us ({wall_us / PROFILE_TICKS:.1f}"
           f" us per tick), device busy {busy:.1f} us = {busy / wall_us:.2%}, "
-          f"idle {1 - busy / wall_us:.2%}; q15_step_kernel "
+          f"idle {1 - busy / wall_us:.2%}; {kernel} "
           f"{kern[0] if kern else 0} launches x "
           f"{kern[1] if kern else float('nan'):.3f} us device time")
-    print("profiled window device time by event (count, total us): " +
+    print(f"{label} device time by event (count, total us): " +
           "; ".join(f"{k[:60]} {n} {t:.1f}" for k, (n, t) in
                     sorted(by_name.items(), key=lambda kv: -kv[1][1])))
     return {"busy_share": busy / wall_us, "kernel": kern}
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# phases 7-9: the fleet
 # ---------------------------------------------------------------------------
 
-def timing(torch, sw):
-    """Per-launch times of the kernel and of the plain step at S = 131,072.
+def fleet_kernels(fleet) -> list:
+    """Every step wrapper of a fleet: the device groups' and the shards'."""
+    return ([k.kernel for k in fleet._group_kernels.values()]
+            + [sh.kernel.kernel for sh in fleet.shards])
+
+
+def totals(feeds, i: int):
+    kind = feeds.kind(i)
+    return None if kind == "detach" else (256 if kind == "two" else 128)
+
+
+def drive_fleet(torch, fleet, feeds, ids, *, verbs: bool):
+    """``drive`` for a fleet: attach ``ids``, tick to the detach point,
+    detach the mid-window streams, drain; with ``verbs``, migrate
+    ``MIGRATED`` two-window streams live at ``MIGRATE_TICK`` and drain /
+    return shard 1 at ``DECOMMISSION_TICK`` / ``RECOMMISSION_TICK``.
+    Returns (events, per-tick seconds, wall seconds, steady-tick transfer
+    delta, advancing ticks, verbs report)."""
+    for i in ids:
+        fleet.attach(f"s{i}", feeds.samples(i), total_steps=totals(feeds, i))
+    events, ticks = [], []
+    steady, advancing, report = None, 0, {}
+    t_start = time.perf_counter()
+
+    def tick(t):
+        nonlocal steady, advancing
+        before = fleet._stream_steps()
+        if t == 10:   # a steady tick: nothing admitted or emitted
+            tr0 = fleet.stats()["transfers"]
+        t0 = time.perf_counter()
+        events.extend(fleet.step())
+        ticks.append(time.perf_counter() - t0)
+        if t == 10:
+            tr1 = fleet.stats()["transfers"]
+            steady = {k: tr1[k] - tr0[k] for k in tr1}
+        if fleet._stream_steps() == before:
+            fail(f"fleet tick {t} advanced no stream while samples were "
+                 "buffered")
+        advancing += 1
+
+    for t in range(DETACH_TICK):
+        tick(t)
+    for i in ids:
+        if feeds.kind(i) == "detach":
+            events.append(fleet.detach(f"s{i}"))
+    t = DETACH_TICK
+    while fleet._any_buffered():
+        if verbs and t == MIGRATE_TICK:
+            moved = [f"s{i}" for i in ids if feeds.kind(i) == "two"][:MIGRATED]
+            t0 = time.perf_counter()
+            report["migrate"] = [fleet.migrate(sid) for sid in moved]
+            report["migrate_s"] = time.perf_counter() - t0
+        if verbs and t == DECOMMISSION_TICK:
+            t0 = time.perf_counter()
+            report["decommissioned"] = len(fleet.decommission(1))
+            report["decommission_s"] = time.perf_counter() - t0
+        if verbs and t == RECOMMISSION_TICK:
+            fleet.recommission(1)
+        tick(t)
+        t += 1
+    torch.cuda.synchronize()
+    return (events, ticks, time.perf_counter() - t_start, steady, advancing,
+            report)
+
+
+def tick_stats(np, ticks) -> str:
+    """Percentiles of per-tick seconds, and the ticks over the 50 Hz
+    budget of 20 ms."""
+    ms = np.array(ticks) * 1e3
+    p50, p95, p99 = np.percentile(ms, [50, 95, 99])
+    return (f"tick p50 {p50:.3f} ms, p95 {p95:.3f} ms, p99 {p99:.3f} ms, "
+            f"max {ms.max():.3f} ms; {int((ms > 20.0).sum())} over the 50 Hz "
+            "budget of 20 ms")
+
+
+def print_host(label: str, tr, steady, tracer) -> None:
+    """A path's transfer ledger, its steady tick's delta, and the host
+    phases of the span tracer."""
+    print(f"{label}: transfers {tr}; steady tick {steady}")
+    print(f"{label} host phases (count, total ms, p50 us, p99 us): " +
+          "; ".join(f"{k} {v['count']} {v['total_us'] / 1e3:.1f} "
+                    f"{v['p50_us']:.1f} {v['p99_us']:.1f}"
+                    for k, v in tracer.phase_stats().items()))
+
+
+def sample_ids():
+    step = (SLOTS + EXTRA) // SAMPLED
+    sample = sorted({k * step + (k % 16) for k in range(SAMPLED)}
+                    | {SLOTS + 1, SLOTS + EXTRA - 1})
+    return [i for i in sample if i < SLOTS + EXTRA]
+
+
+def fleet_path(torch, np, dev, art, feeds, single, *, mxu: bool) -> dict:
+    """The fleet main path on K2 (``mxu``) or K1.  ``single`` is the
+    single-engine main path's per-stream events."""
+    from repro_torch.obs import Observability, Tracer
+    from repro_torch.serve.fleet import FleetConfig, FleetEngine
+    from repro_torch.serve.streaming import StreamingConfig
+
+    name = "K2 (q15_step_dense)" if mxu else "K1 (q15_step)"
+    ids = list(range(SLOTS + EXTRA))
+    obs = Observability(tracer=Tracer(capacity=1024))
+    t0 = time.perf_counter()
+    fleet = FleetEngine.from_artifact(art, FleetConfig(
+        shards=SHARDS, max_pending_per_shard=0,
+        stream=StreamingConfig(max_slots=SHARD_SLOTS, batch_events=True,
+                               device=dev, mxu=mxu)), obs=obs)
+    if len(fleet._group_list) != 1:
+        fail(f"{len(fleet._group_list)} device groups on one card, want 1")
+    kernels = fleet_kernels(fleet)
+    for k in kernels:
+        k.launches = 0                  # count this path's run only
+    events, ticks, wall, steady, advancing, report = drive_fleet(
+        torch, fleet, feeds, ids, verbs=True)
+    launches = sum(k.launches for k in kernels)
+    setup = time.perf_counter() - t0 - wall
+    kinds = {type(k).__name__ for k in kernels if k.launches}
+    want = "DenseStep" if mxu else "FastGRNNStep"
+    if kinds != {want}:
+        fail(f"fleet launched {kinds}, want only {want}")
+    if launches != advancing:
+        fail(f"{name}: launches {launches} != advancing fleet ticks "
+             f"{advancing}")
+    st = fleet.stats()
+    expect = sum(DETACH_TICK if feeds.kind(i) == "detach"
+                 else totals(feeds, i) for i in ids)
+    if st["stream_steps"] != expect:
+        fail(f"{name}: stream steps {st['stream_steps']} != {expect}")
+    if st["migrations"] != len(report["migrate"]) + report["decommissioned"]:
+        fail(f"{name}: migrations {st['migrations']}")
+    tr = st["transfers"]
+    if steady["h_h2d_bytes"] or steady["h_d2h_bytes"]:
+        fail(f"{name}: steady tick moved h bytes: {steady}")
+    got = per_stream(events, [f"s{i}" for i in ids])
+    if mxu:
+        # sampled streams against a CPU fleet on the plain dense step
+        sample = sample_ids()
+        cpu = FleetEngine.from_artifact(art, FleetConfig(
+            shards=SHARDS, max_pending_per_shard=0,
+            stream=StreamingConfig(max_slots=len(sample), device="cpu",
+                                   batch_events=True, mxu=True)))
+        ref = per_stream(drive_fleet(torch, cpu, feeds, sample,
+                                     verbs=False)[0],
+                         [f"s{i}" for i in sample])
+        for sid, want_ev in ref.items():
+            if not want_ev or got[sid] != want_ev:
+                fail(f"{name} fleet stream {sid}: events {got[sid][:1]} != "
+                     f"cpu fleet {want_ev[:1]}")
+        # predictions against the K1 single engine
+        n = same = 0
+        for sid, want_ev in single.items():
+            mine = got[sid]
+            if [e[:3] for e in mine] != [e[:3] for e in want_ev]:
+                fail(f"{name} fleet stream {sid}: event steps differ from "
+                     "the K1 engine")
+            n += len(want_ev)
+            same += sum(a[3] == b[3] for a, b in zip(mine, want_ev))
+        share = same / n
+        print(f"fleet {name}: {len(sample)} sampled streams bitwise equal to "
+              f"the CPU fleet on step_dense; {same} of {n} windows "
+              f"({share:.4%}) predict as the K1 engine")
+        if share < MIN_AGREEMENT:
+            fail(f"{name}: prediction agreement {share:.4%} < "
+                 f"{MIN_AGREEMENT:.1%}")
+    else:
+        if got != single:
+            bad = next(sid for sid in single if got[sid] != single[sid])
+            fail(f"{name} fleet stream {bad}: events differ from the "
+                 f"single engine's")
+        share = 1.0
+        print(f"fleet {name}: all {len(single)} streams' events bitwise "
+              "equal to the single engine's")
+    rate = st["stream_steps"] / wall
+    print(f"fleet {name}: {SHARDS} shards x {SHARD_SLOTS} slots, "
+          f"{len(ids)} streams, {len(ticks)} ticks ({advancing} advancing, "
+          f"{launches} launches), {st['stream_steps']} stream-steps in "
+          f"{wall:.3f} s = {rate:,.0f} stream-steps/s; "
+          f"{tick_stats(np, ticks)}; set-up (build + attach) {setup:.1f} s")
+    statuses = report["migrate"]
+    print(f"fleet {name}: migrate {len(statuses)} streams at tick "
+          f"{MIGRATE_TICK} "
+          f"in {report['migrate_s'] * 1e3:.1f} ms "
+          f"({statuses.count('active')} active, {statuses.count('pending')} "
+          f"pending); decommission shard 1 at tick {DECOMMISSION_TICK}: "
+          f"{report['decommissioned']} streams moved in "
+          f"{report['decommission_s'] * 1e3:.1f} ms; recommission at tick "
+          f"{RECOMMISSION_TICK}; global spills {st['global_spills']}")
+    print_host(f"fleet {name}", tr, steady, obs.tracer)
+    if mxu:
+        profiled_window(torch, fleet, feeds, "q15_step_dense_kernel",
+                        f"fleet {name} profiled window")
+    del fleet
+    return {"launches": launches, "rate": rate, "share": share}
+
+
+def failover(torch, np, dev, art, feeds) -> None:
+    """Failover on the card (K2): one crash at each tick phase against the
+    same run without crashes, every event bitwise."""
+    from repro_torch.serve.fleet import (FleetConfig, FleetEngine,
+                                         ScheduledFaults)
+    from repro_torch.serve.streaming import StreamingConfig
+
+    ids = range(SHARDS * FO_SLOTS)
+    logs, recovery = {}, []
+    for crashes in (True, False):
+        fleet = FleetEngine.from_artifact(art, FleetConfig(
+            shards=SHARDS, max_pending_per_shard=0,
+            snapshot_every=FO_SNAPSHOT_EVERY,
+            stream=StreamingConfig(max_slots=FO_SLOTS, batch_events=True,
+                                   device=dev, mxu=True)),
+            faults=ScheduledFaults(schedule=FO_CRASHES) if crashes else None)
+        crash = fleet.crash_shard
+
+        def timed(shard, phase=None):
+            t0 = time.perf_counter()
+            out = crash(shard, phase=phase)
+            torch.cuda.synchronize()
+            recovery.append((time.perf_counter() - t0, out))
+            return out
+
+        fleet.crash_shard = timed
+        for i in ids:
+            x = feeds.samples(i)
+            fleet.attach(f"s{i}", x, total_steps=len(x))
+        t0 = time.perf_counter()
+        events = fleet.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = fleet.stats()
+        logs[crashes] = per_stream(events, [f"s{i}" for i in ids])
+        print(f"failover ({'3 crashes' if crashes else 'no crash'}): "
+              f"{SHARDS} x {FO_SLOTS} slots, {len(ids)} streams, "
+              f"{st['ticks']} ticks in {wall:.3f} s, failovers "
+              f"{st['failovers']}, snapshots {st['snapshots']}, replayed "
+              f"{st['replayed_samples']} samples, suppressed "
+              f"{st['replay_suppressed']} events")
+        del fleet
+    if len(recovery) != len(FO_CRASHES):
+        fail(f"{len(recovery)} crashes ran, want {len(FO_CRASHES)}")
+    if logs[True] != logs[False]:
+        bad = next(s for s in logs[False] if logs[True][s] != logs[False][s])
+        fail(f"failover: stream {bad} events differ from the run without "
+             "crashes")
+    for dt, rep in recovery:
+        print(f"failover: shard {rep['shard']} crashed at {rep['phase']}: "
+              f"{rep['streams_recovered']} streams recovered "
+              f"({rep['replayed_samples']} samples to replay, "
+              f"{rep['wire_bytes']} wire bytes) in {dt * 1e3:.1f} ms")
+    print(f"failover: all {len(logs[False])} streams' events bitwise equal "
+          "to the run without crashes")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timing
+# ---------------------------------------------------------------------------
+
+def timing(torch, sw) -> dict:
+    """Per-launch times of K1 and K2 and of their plain steps at S =
+    131,072, side by side in one process.
 
     Device time: the launches are queued behind ``torch.cuda._sleep`` so
     that they run back to back on the card whatever the host's enqueue
     rate, timed with CUDA events (``prefilled`` says the queue really was
     full when the host finished enqueuing).  Host time: the host's enqueue
-    cost per call, timed back to back.  The kernel's device time is also
-    read from a torch.profiler trace."""
+    cost per call, timed back to back.  Each kernel's device time is also
+    read from a torch.profiler trace.  Rounds run K1, K2, plain K1, plain
+    K2 and then in the reverse order."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.fastgrnn_cell.kernel import make_fastgrnn_step
     from repro_torch.kernels.fastgrnn_cell.ops import Q15StreamStep
 
     dev = torch.device("cuda", 0)
-    k = make_fastgrnn_step(sw, device=dev)
+    steps = {"q15_step": make_fastgrnn_step(sw, device=dev),
+             "q15_step_dense": make_fastgrnn_step(sw, device=dev, mxu=True)}
     S, H, d = S_KERNEL, sw.hidden_dim, sw.input_dim
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     sets = [(torch.randn(S, H, generator=g, device=dev) * 0.5,
@@ -501,24 +874,21 @@ def timing(torch, sw):
         torch.cuda.synchronize()
         return a.elapsed_time(b) / n, host_ms, prefilled
 
-    kern = [per_launch(k, 200, 40)]
-    plain = [per_launch(k.plain, 6, 4)]
-    kern.append(per_launch(k, 200, 40))      # plain, kernel, kernel, plain
-    plain.append(per_launch(k.plain, 6, 4))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(100):
-            k(*sets[i % TIMING_SETS])
-        torch.cuda.synchronize()
-    prof_k = kernel_device_us(prof, "q15_step_kernel")
-
-    roof = Q15StreamStep(sw, device=dev).roofline(1.0)
-    nbytes = S * roof["hbm_bytes_per_stream_step"]
-    nops = S * roof["model_flops_per_stream_step"]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_FLOPS * 1e3
-    bound = max(t_bytes, t_ops)
-    ms = min(r[0] for r in kern)
-    plain_ms = min(r[0] for r in plain)
-    host_ms = min(r[1] for r in kern)
+    kern = {n: [] for n in steps}
+    plain = {n: [] for n in steps}
+    order = list(steps)
+    for names in (order, order[::-1]):
+        for n in names:
+            kern[n].append(per_launch(steps[n], 200, 40))
+        for n in names:
+            plain[n].append(per_launch(steps[n].plain, 6, 4))
+    prof_us = {}
+    for n, k in steps.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(100):
+                k(*sets[i % TIMING_SETS])
+            torch.cuda.synchronize()
+        prof_us[n] = kernel_device_us(prof, f"{n}_kernel")
 
     def fmt(rows, digits):
         return ", ".join(f"device {r[0] * 1e3:.{digits}f} us / host "
@@ -526,21 +896,35 @@ def timing(torch, sw):
                          f"{'' if r[2] else ' (queue drained: host-bound)'}"
                          for r in rows)
 
-    print(f"timing S={S} over {TIMING_SETS} input sets ({in_bytes} B of "
-          f"inputs, one {S * H * 4} B output block reused), launches queued "
-          f"behind a sleep: kernel [{fmt(kern, 3)}]; plain "
-          f"[{fmt(plain, 1)}] per call")
-    print(f"timing: q15_step_kernel device time from the profiler "
-          f"{'not measured (no device event)' if prof_k is None else f'{prof_k[1]:.3f} us over {prof_k[0]} launches'}"
-          f"; the {'host enqueue' if host_ms > ms else 'device'} bounds "
-          f"back-to-back launches (host {host_ms * 1e3:.3f} us vs device "
-          f"{ms * 1e3:.3f} us)")
-    print(f"timing: bound {bound * 1e3:.3f} us ({nbytes} B over 3.35 TB/s; "
-          f"{nops} fp32 ops = {t_ops * 1e3:.3f} us); kernel at "
-          f"{bound / ms:.1%} of the bound; no single PyTorch call computes "
-          f"this step, so there is no library yardstick")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out = {}
+    for n in steps:
+        roof = Q15StreamStep(sw, device=dev, mxu=n == "q15_step_dense"
+                             ).roofline(1.0)
+        nbytes = S * roof["hbm_bytes_per_stream_step"]
+        nops = S * roof["model_flops_per_stream_step"]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / FP32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        ms = min(r[0] for r in kern[n])
+        host_ms = min(r[1] for r in kern[n])
+        prof_k = prof_us[n]
+        print(f"timing {n} S={S} over {TIMING_SETS} input sets ({in_bytes} "
+              f"B of inputs, one {S * H * 4} B output block reused), "
+              f"launches queued behind a sleep: kernel [{fmt(kern[n], 3)}]; "
+              f"plain [{fmt(plain[n], 1)}] per call")
+        print(f"timing {n}: device time from the profiler "
+              f"{'not measured (no device event)' if prof_k is None else f'{prof_k[1]:.3f} us over {prof_k[0]} launches'}"
+              f"; the {'host enqueue' if host_ms > ms else 'device'} bounds "
+              f"back-to-back launches (host {host_ms * 1e3:.3f} us vs device "
+              f"{ms * 1e3:.3f} us)")
+        print(f"timing {n}: bound {bound * 1e3:.3f} us ({nbytes} B over "
+              f"3.35 TB/s; {nops} fp32 ops = {t_ops * 1e3:.3f} us); kernel at "
+              f"{bound / ms:.1%} of the bound; no single PyTorch call "
+              f"computes this gated step, so there is no library yardstick")
+        out[n] = {"ms": ms, "plain_ms": min(r[0] for r in plain[n]),
+                  "bound_ms": bound,
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return out
 
 
 def main() -> int:
@@ -562,18 +946,28 @@ def main() -> int:
     windows = hapt.generate_synthetic("test", SEED, n=8).windows
     dev = torch.device("cuda", 0)
     max_err = kernel_vs_plain(torch, windows, dev)
-    launches, eng, feeds = main_path(torch, np, dev)
+    dense_err = dense_vs_plain(torch, np, dev)
+    launches, eng, feeds, art, events = main_path(torch, np, dev)
     profiled_window(torch, eng, feeds)
     sw = eng.kernel.sw
     del eng
+    single = per_stream(events, [f"s{i}" for i in range(SLOTS + EXTRA)])
+    del events
+    k2 = fleet_path(torch, np, dev, art, feeds, single, mxu=True)
+    fleet_path(torch, np, dev, art, feeds, single, mxu=False)
+    del single
+    failover(torch, np, dev, art, feeds)
     t = timing(torch, sw)
+    src = "src/repro/kernels/fastgrnn_cell/kernel.py"
+    rows = [("q15_step", f"{src}:119", launches, max_err),
+            ("q15_step_dense", f"{src}:146", k2["launches"], dense_err)]
     print(json.dumps({"kernels": [{
-        "name": "q15_step", "route": "cuda",
-        "source": "src/repro_torch/csrc/q15_step.cu",
-        "replaces": "src/repro/kernels/fastgrnn_cell/kernel.py:119",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]}))
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+        "launches": n, "max_abs_err": err, "ms": t[name]["ms"],
+        "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
+        "bound_by": t[name]["bound_by"], "library_ms": None}
+        for name, replaces, n, err in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

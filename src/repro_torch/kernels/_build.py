@@ -4,10 +4,13 @@ Each kernel is one source ``csrc/<name>.cu`` with a plain ``extern "C"``
 launcher.  It is compiled at first use, on the machine with the card, into
 a shared library under ``<package>/_build/`` (listed in ``.gitignore``),
 keyed by a hash of the source and the flags so an unchanged kernel is not
-rebuilt.  The flags pin the numerics: ``--fmad=false`` (no contraction of
-``a*b+c`` into an FMA) and ``-prec-div=true``; ``--use_fast_math`` is never
-passed.  Nothing here runs at import time: the CPU tests import every
-module of the port on a machine with no ``nvcc``.
+rebuilt.  :func:`build_all` starts one nvcc per source at once, so the
+kernels build in parallel.  The flags pin the numerics: ``--fmad=false``
+(no contraction of ``a*b+c`` into an FMA) and ``-prec-div=true``;
+``--use_fast_math`` is never passed.  ``-Xptxas=-v`` makes the compiler
+report each kernel's registers, shared memory and spills.  Nothing here
+runs at import time: the CPU tests import every module of the port on a
+machine with no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
@@ -25,7 +29,7 @@ BUILD_DIR = PACKAGE / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-prec-div=true", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -57,25 +61,73 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build(name: str) -> Path:
-    """Compile kernel ``name`` unless its library is built already and
-    return the library's path.  Raises :class:`KernelBuildError` with the
-    compiler's output on failure and leaves no partial library behind."""
-    lib = library_path(name)
-    if lib.exists():
-        return lib
+def _nvcc(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` into a temporary library file, its
+    output going to an anonymous temporary file (never a pipe that could
+    fill while the caller waits on another build)."""
+    cmd = [find_nvcc(), *NVCC_FLAGS]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    out = subprocess.run(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-    if out.returncode != 0:
+    log = tempfile.TemporaryFile(mode="w+")
+    try:
+        proc = subprocess.Popen(cmd + ["-o", tmp, str(CSRC / f"{name}.cu")],
+                                stdout=log, stderr=subprocess.STDOUT)
+    except OSError as e:
+        log.close()
         os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed for {name}.cu "
-                               f"(rc {out.returncode}):\n{out.stdout}")
-    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
-    return lib
+        raise KernelBuildError(f"could not start nvcc for {name}.cu: {e}") from e
+    return proc, tmp, log
+
+
+def build_all(names) -> dict[str, tuple[Path, float, str]]:
+    """Compile every kernel in ``names`` whose library is not built yet,
+    one nvcc per source, all started before any is waited on.  Returns
+    ``{name: (library path, seconds, compiler output)}``; a library that was
+    built already takes 0.0 s and has no output.  Raises
+    :class:`KernelBuildError` with the compiler's output if any build fails,
+    and leaves no partial library behind."""
+    out: dict[str, tuple[Path, float, str]] = {}
+    running = {}
+    errors = []
+    t0 = time.perf_counter()
+    try:
+        for name in names:
+            lib = library_path(name)
+            if lib.exists():
+                out[name] = (lib, 0.0, "")
+            else:
+                running[name] = _nvcc(name)
+        for name in list(running):
+            proc, tmp, log = running[name]
+            proc.wait()
+            del running[name]
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                errors.append(f"nvcc failed for {name}.cu "
+                              f"(rc {proc.returncode}):\n{text}")
+                continue
+            lib = library_path(name)
+            os.replace(tmp, lib)   # atomic: a concurrent loader sees all
+            out[name] = (lib, time.perf_counter() - t0, text)  # or nothing
+    finally:   # interrupted while others build: stop them, leave nothing
+        for proc, tmp, log in running.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+            os.unlink(tmp)
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    return out
+
+
+def build(name: str) -> Path:
+    """Compile kernel ``name`` unless its library is built already and
+    return the library's path (see :func:`build_all`)."""
+    return build_all([name])[name][0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,20 +1,25 @@
-"""Wrapper of the hand-written CUDA step kernel (``csrc/q15_step.cu``).
+"""Wrappers of the hand-written CUDA step kernels.
 
-It replaces ``repro/kernels/fastgrnn_cell/kernel.py::_q15_step_kernel``
-(the Pallas TPU kernel built by ``make_fastgrnn_step(mxu=False)``): one
-masked Q15 FastGRNN step for S streams, bitwise equal to the plain
-``qstep.step_batched``.
+* :class:`FastGRNNStep` (``csrc/q15_step.cu``) replaces
+  ``repro/kernels/fastgrnn_cell/kernel.py::_q15_step_kernel`` (the Pallas
+  TPU kernel built by ``make_fastgrnn_step(mxu=False)``): one masked Q15
+  FastGRNN step for S streams with int16 weights dequantized on use,
+  bitwise equal to the plain ``qstep.step_batched``.
+* :class:`DenseStep` (``csrc/q15_step_dense.cu``) replaces
+  ``_q15_step_kernel_mxu`` (``make_fastgrnn_step(mxu=True)``): the same
+  step against pre-multiplied effective float32 W and U and without
+  activation storage, bitwise equal to the plain ``qstep.step_dense``.
 
-The kernel is bound by HBM bytes: per stream-step it reads x (12 B) and h
-(64 B) and the mask byte and writes a fresh h (64 B), about 18.5 MB per
-step at S = 131,072, so about 5.5 us at 3.35 TB/s.  It holds the
-dequantized weights and both LUTs in shared memory, so they are never
-re-read from HBM per row.  It writes a new output tensor rather than
-updating h in place: the streaming engine keys a row cache on the identity
-of the h tensor (``StreamingEngine.prefetch_h``).
+Both kernels are bound by HBM bytes: per stream-step they read x (12 B)
+and h (64 B) and the mask byte and write a fresh h (64 B), about 18.5 MB
+per step at S = 131,072, so about 5.5 us at 3.35 TB/s.  They hold the
+weights and both LUTs in shared memory, so these are never re-read from
+HBM per row.  They write a new output tensor rather than updating h in
+place: the streaming engine keys a row cache on the identity of the h
+tensor (``StreamingEngine.prefetch_h``).
 
-On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.  There is no fallback from one to the other.
+On CPU tensors a wrapper runs its plain version; on CUDA tensors it
+launches its kernel or raises.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch.kernels import _build
 from . import qstep
 
 KERNEL = "q15_step"
+DENSE_KERNEL = "q15_step_dense"
 
 # bits of the kernel's store-enable mask, in qstep.STORE_NAMES order
 _STORE_BITS = {"pre": 1, "z": 2, "h_tilde": 4, "h": 8}
@@ -41,12 +47,47 @@ _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,   # h x mask out S H D lr R
              _P]                                       # stream
 
 
+_DENSE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I,        # h x mask out S H D
+                   _P, _P, _P, _P, _P, _P, _F, _F,    # w u b_z b_h luts zeta nu
+                   _P]                                # stream
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.q15_step_launch.argtypes = _ARGTYPES
     lib.q15_step_launch.restype = _I
     lib.q15_step_error_string.argtypes = [_I]
     lib.q15_step_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _bind_dense(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.q15_step_dense_launch.argtypes = _DENSE_ARGTYPES
+    lib.q15_step_dense_launch.restype = _I
+    lib.q15_step_dense_fixed.argtypes = [_I, _I, _P, _P]
+    lib.q15_step_dense_fixed.restype = _I
+    lib.q15_step_dense_error_string.argtypes = [_I]
+    lib.q15_step_dense_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(step, h, x, mask) -> None:
+    """The contract both kernels take: contiguous float32 (S, H) h, (S, d)
+    x and bool (S,) mask, all on the step's device."""
+    H, d = step.sw.hidden_dim, step.sw.input_dim
+    for name, t, dtype in (("h", h, torch.float32), ("x", x, torch.float32),
+                           ("mask", mask, torch.bool)):
+        if t.device != step.device:
+            raise ValueError(f"{name} is on {t.device}, step built for "
+                             f"{step.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    S = h.shape[0]
+    if h.shape != (S, H) or x.shape != (S, d) or mask.shape != (S,):
+        raise ValueError(f"shapes h {tuple(h.shape)}, x {tuple(x.shape)}, "
+                         f"mask {tuple(mask.shape)}; want ({S}, {H}), "
+                         f"({S}, {d}), ({S},)")
 
 
 class FastGRNNStep:
@@ -76,23 +117,6 @@ class FastGRNNStep:
             self._sscale.append(0.0 if s is None else s)
         self._store = store
 
-    def _check(self, h, x, mask) -> None:
-        H, d = self.sw.hidden_dim, self.sw.input_dim
-        for name, t, dtype in (("h", h, torch.float32), ("x", x, torch.float32),
-                               ("mask", mask, torch.bool)):
-            if t.device != self.device:
-                raise ValueError(f"{name} is on {t.device}, step built for "
-                                 f"{self.device}")
-            if t.dtype != dtype:
-                raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-        S = h.shape[0]
-        if h.shape != (S, H) or x.shape != (S, d) or mask.shape != (S,):
-            raise ValueError(f"shapes h {tuple(h.shape)}, x {tuple(x.shape)}, "
-                             f"mask {tuple(mask.shape)}; want ({S}, {H}), "
-                             f"({S}, {d}), ({S},)")
-
     def plain(self, h, x, mask) -> torch.Tensor:
         """The plain PyTorch version on this step's device (no launch)."""
         h_new = qstep.step_batched(self._arrs, self.sw, h, x)
@@ -100,7 +124,7 @@ class FastGRNNStep:
 
     def __call__(self, h: torch.Tensor, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
-        self._check(h, x, mask)
+        _check(self, h, x, mask)
         if h.device.type == "cpu":
             return self.plain(h, x, mask)
         out = torch.empty_like(h)
@@ -124,13 +148,57 @@ class FastGRNNStep:
         return out
 
 
+class DenseStep:
+    """The dense-layout batched step ``step(h, x, mask) -> h_new``: the
+    same contract as :class:`FastGRNNStep` (and the same ``launches``
+    counter and ``plain``), computed against the pre-multiplied effective
+    float32 W and U (``qstep.dense_weights``) with no activation storage,
+    as the reference's dense layout does."""
+
+    def __init__(self, sw: "qstep.StepWeights", device="cuda"):
+        self.sw = sw
+        self.device = resolve_device(device)
+        self.launches = 0
+        self._arrs = qstep.dense_arrays(sw, self.device)
+        if self.device.type == "cuda":
+            self._lib = _bind_dense(_build.load(DENSE_KERNEL))
+
+    def plain(self, h, x, mask) -> torch.Tensor:
+        """The plain PyTorch version on this step's device (no launch)."""
+        return qstep.step_dense(self._arrs, h, x, mask)
+
+    def fixed_width(self, h: torch.Tensor, out: torch.Tensor) -> bool:
+        """Whether a launch on these tensors runs the kernel's instantiation
+        with the sizes fixed at compile time (the paper's width)."""
+        return bool(self._lib.q15_step_dense_fixed(
+            self.sw.hidden_dim, self.sw.input_dim, h.data_ptr(),
+            out.data_ptr()))
+
+    def __call__(self, h: torch.Tensor, x: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+        _check(self, h, x, mask)
+        if h.device.type == "cpu":
+            return self.plain(h, x, mask)
+        out = torch.empty_like(h)
+        a = self._arrs
+        err = self._lib.q15_step_dense_launch(
+            h.data_ptr(), x.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            h.shape[0], self.sw.hidden_dim, self.sw.input_dim,
+            a["W"].data_ptr(), a["U"].data_ptr(), a["b_z"].data_ptr(),
+            a["b_h"].data_ptr(), a["sig_lut"].data_ptr(),
+            a["tanh_lut"].data_ptr(), a["zeta"], a["nu"],
+            torch.cuda.current_stream(self.device).cuda_stream)
+        if err != 0:
+            msg = self._lib.q15_step_dense_error_string(err).decode()
+            raise RuntimeError(f"{DENSE_KERNEL} launch failed ({err}): {msg}")
+        self.launches += 1
+        return out
+
+
 def make_fastgrnn_step(sw: "qstep.StepWeights", *, device="cuda",
-                       mxu: bool = False) -> FastGRNNStep:
+                       mxu: bool = False) -> FastGRNNStep | DenseStep:
     """Build the batched single-step callable for ``sw`` on ``device``
-    (weights uploaded and the kernel built once, here).  ``mxu=True``, the
-    reference's tensor-core layout, is not ported yet (ROADMAP B2)."""
-    if mxu:
-        raise NotImplementedError(
-            "mxu=True (the dense 128-lane tensor-core step, reference "
-            "_q15_step_kernel_mxu) is not ported yet: ROADMAP B2")
-    return FastGRNNStep(sw, device)
+    (weights uploaded and the kernel built once, here): the Q15 step with
+    weights dequantized on use, or with ``mxu=True`` the reference's dense
+    layout (:class:`DenseStep`)."""
+    return (DenseStep if mxu else FastGRNNStep)(sw, device)

@@ -6,8 +6,12 @@ The device decides the path: ``device="cpu"`` runs the plain torch
 ``qstep.step_batched`` (bit-exact, what the tests use), ``device="cuda"``
 (the default) runs the hand-written CUDA kernel through
 :class:`~repro_torch.kernels.fastgrnn_cell.kernel.FastGRNNStep`.  Both are
-bitwise equal to the scalar ``core/qruntime.QRuntime``.  Asking for CUDA
-without a card raises.
+bitwise equal to the scalar ``core/qruntime.QRuntime``.  ``mxu=True``
+selects the reference's dense layout instead
+(:class:`~repro_torch.kernels.fastgrnn_cell.kernel.DenseStep`: plain
+``qstep.step_dense`` on the CPU, ``csrc/q15_step_dense.cu`` on the card),
+which is within 1e-6 of the Q15 step per step and stores no activation in
+Q15.  Asking for CUDA without a card raises.
 """
 from __future__ import annotations
 
@@ -55,8 +59,9 @@ class Q15StreamStep:
         else:
             self.sw = qstep.StepWeights.from_quantized(
                 qp_or_sw, act_scales=act_scales, naive_acts=naive_acts)
-        # raises NotImplementedError for mxu=True (ROADMAP B2) and builds
-        # the CUDA kernel now on a card, so a build failure surfaces here
+        self.mxu = bool(mxu)
+        # builds the CUDA kernel now on a card, so a build failure
+        # surfaces here
         self.kernel = make_fastgrnn_step(self.sw, device=self.device, mxu=mxu)
         self.transfers = TransferLedger()
         self._host_arrs = self.sw.arrays("cpu")
@@ -170,9 +175,13 @@ class Q15StreamStep:
         device tensor immediately (the launch is asynchronous); ``h_dev`` is
         not modified.  Only x and the active mask cross h2d; h never
         touches the host.  ``x`` may be the pinned :meth:`staging_buffer`
-        (then copied without a host copy) or any host array."""
-        self.wait_staged()
+        (then copied without a host copy) or any host array.  On the CPU
+        the same call steps a CPU state table synchronously."""
         n = x.shape[0]
+        if self.device.type == "cpu":
+            return self.kernel(h_dev, _as_tensor(x, torch.float32),
+                               _as_tensor(active, torch.bool))
+        self.wait_staged()
         if self._x_pin is None or self._x_pin.shape[0] != n:
             self.staging_buffer(n)
         if x is not self._x_host:
@@ -188,12 +197,16 @@ class Q15StreamStep:
     def roofline(self, stream_steps_per_sec: float) -> dict:
         """Achieved-vs-peak for the batched single step against the H100 SXM
         data sheet (HBM 3.35 TB/s, fp32 non-tensor 67 TFLOP/s), at a
-        measured aggregate stream-step rate.  Counts the real (H, d) cell's
-        operations and the HBM bytes per stream-step (x and mask in, h in
-        and out; weights and LUTs stay in shared memory)."""
+        measured aggregate stream-step rate.  Counts the operations this
+        layout runs for the real (H, d) cell (the dense layout multiplies
+        by the pre-multiplied H x d and H x H matrices whatever the ranks)
+        and the HBM bytes per stream-step (x and mask in, h in and out;
+        weights and LUTs stay in shared memory)."""
         sw = self.sw
         H, d = sw.hidden_dim, sw.input_dim
-        if sw.low_rank:
+        if self.mxu:
+            mm = 2 * (d * H + H * H)
+        elif sw.low_rank:
             rw, ru = sw.ranks
             mm = 2 * (d * rw + H * rw + H * ru + H * ru)
         else:
@@ -203,6 +216,7 @@ class Q15StreamStep:
         rate = float(stream_steps_per_sec)
         return {
             "device": str(self.device),
+            "mxu": self.mxu,
             "model_flops_per_stream_step": int(flops),
             "hbm_bytes_per_stream_step": int(bytes_per_step),
             "stream_steps_per_sec": rate,
@@ -240,10 +254,9 @@ class Q15StreamStep:
         consumers: advance exactly the slots listed in ``rows`` (the
         precomputed ``np.nonzero(active)[0]``; derived here if omitted).
 
-        Only those rows are computed — ``step_batched`` is row-independent,
-        so the gathered computation is bit-identical to the masked
-        full-batch step while skipping idle slots.  CPU only, like
-        :meth:`step`."""
+        Only those rows are computed — the step is row-independent, so
+        the gathered computation is bit-identical to the masked full-batch
+        step while skipping idle slots.  CPU only, like :meth:`step`."""
         self._host_only("step_rows")
         if rows is None:
             rows = np.nonzero(np.asarray(active))[0]
@@ -253,16 +266,21 @@ class Q15StreamStep:
         idx = torch.from_numpy(np.asarray(rows, np.int64))
         x = _as_tensor(x, torch.float32)
         h = h.clone()
-        h[idx] = qstep.step_batched(self._host_arrs, self.sw, h[idx], x[idx],
-                                    events=self.numeric_events)
+        if self.mxu:
+            self.tally_numeric_events(h, x, rows)
+            h[idx] = self.kernel(h[idx], x[idx],
+                                 torch.ones(len(idx), dtype=torch.bool))
+        else:
+            h[idx] = qstep.step_batched(self._host_arrs, self.sw, h[idx],
+                                        x[idx], events=self.numeric_events)
         return h
 
     def tally_numeric_events(self, h, x, rows) -> None:
-        """Numeric-health tallies for rows stepped elsewhere (the CUDA
-        kernel): recompute their step on the host plain path purely to
-        observe its intermediates, discarding the result.  The kernel's
-        output is never modified, so monitored and unmonitored runs stay
-        byte-identical."""
+        """Numeric-health tallies for rows stepped elsewhere (a CUDA kernel
+        or the dense layout): recompute their Q15 step on the host plain
+        path purely to observe its intermediates, discarding the result.
+        The step's output is never modified, so monitored and unmonitored
+        runs stay byte-identical."""
         if self.numeric_events is None or rows is None or len(rows) == 0:
             return
         idx = torch.from_numpy(np.asarray(rows, np.int64))

@@ -1,7 +1,8 @@
 """Batched single-step Q15 FastGRNN cell math in plain PyTorch.
 
-This is the **plain version** of the CUDA step kernel (``kernel.py``,
-``csrc/q15_step.cu``) and the port of the reference
+This is the **plain version** of the CUDA step kernels (``kernel.py``:
+``csrc/q15_step.cu`` is :func:`step_batched`, ``csrc/q15_step_dense.cu``
+the dense layout :func:`step_dense`) and the port of the reference
 ``repro.kernels.fastgrnn_cell.qstep``: one FastGRNN step for a whole batch
 of independent streams, written as the same scalar IEEE-754 float32 ops per
 stream row as the scalar ``core/qruntime.QRuntime.step`` — fixed ascending-j
@@ -244,6 +245,46 @@ def step_batched(arrs: dict, sw: StepWeights, h: torch.Tensor,
     h_tilde = store_batched(h_tilde, st["h_tilde"])
     h_new = (sw.zeta * (1.0 - z) + sw.nu) * h_tilde + z * h
     return store_batched(h_new, st["h"])
+
+
+def dense_weights(sw: StepWeights) -> tuple[torch.Tensor, torch.Tensor]:
+    """Effective W (H, d) and U (H, H) of the dense step layout: the
+    low-rank factors pre-multiplied (``W1 @ W2.T``, ``U1 @ U2.T``), with
+    numpy's ``@`` on the float32 arrays as the reference's
+    ``make_fastgrnn_step`` does, so the matrices are bitwise the
+    reference's.  Full rank: the
+    dequantized W and U themselves."""
+    w = {n: t.numpy() for n, t in sw.w.items()}
+    if sw.low_rank:
+        W, U = w["W1"] @ w["W2"].T, w["U1"] @ w["U2"].T
+    else:
+        W, U = w["W"], w["U"]
+    return (torch.from_numpy(np.ascontiguousarray(W, np.float32)),
+            torch.from_numpy(np.ascontiguousarray(U, np.float32)))
+
+
+def dense_arrays(sw: StepWeights, device) -> dict:
+    """Every constant :func:`step_dense` needs, on ``device``."""
+    dev = torch.device(device)
+    W, U = dense_weights(sw)
+    return {"W": W.to(dev), "U": U.to(dev), "b_z": sw.b_z.to(dev),
+            "b_h": sw.b_h.to(dev), "sig_lut": sw.sig_lut.to(dev),
+            "tanh_lut": sw.tanh_lut.to(dev), "zeta": sw.zeta, "nu": sw.nu}
+
+
+def step_dense(arrs: dict, h: torch.Tensor, x: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """One masked batched step in the dense layout: the plain version of
+    the reference's ``_q15_step_kernel_mxu``.  ``arrs`` is
+    :func:`dense_arrays`.  ``pre = x W^T + h U^T`` as two ascending-j
+    chains added at the end, the LUT gates, ``(zeta (1 - z) + nu) h~ +
+    z h``, and rows whose mask is False keep h bit for bit.  Like the
+    reference, this layout stores no activation in Q15 in any mode."""
+    pre = matvec_batched(arrs["W"], x) + matvec_batched(arrs["U"], h)
+    z = lut_eval_batched(arrs["sig_lut"], pre + arrs["b_z"])
+    h_tilde = lut_eval_batched(arrs["tanh_lut"], pre + arrs["b_h"])
+    h_new = (arrs["zeta"] * (1.0 - z) + arrs["nu"]) * h_tilde + z * h
+    return torch.where(mask[:, None], h_new, h)
 
 
 def logits_batched(arrs: dict, sw: StepWeights, h: torch.Tensor) -> torch.Tensor:

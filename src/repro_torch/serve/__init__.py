@@ -1,1 +1,2 @@
-"""Serving: the slot scheduler and the multi-stream streaming engine."""
+"""Serving: the slot scheduler, the multi-stream streaming engine and the
+sharded fleet (``serve.fleet``)."""

@@ -7,7 +7,8 @@ stateful sessions (one hidden state + warm-up counter each) stepped in
 lockstep by the batched Q15 single-step kernel
 (``kernels/fastgrnn_cell.ops.Q15StreamStep``).  Ported from the reference
 ``repro.serve.streaming``; on a CUDA device the step is the hand-written
-kernel ``csrc/q15_step.cu`` and the hidden-state table lives on the card.
+kernel ``csrc/q15_step.cu`` (``csrc/q15_step_dense.cu`` with
+``StreamingConfig.mxu``) and the hidden-state table lives on the card.
 
 Placement — which stream occupies which resident slot, FIFO admission from
 the pending queue, slot recycling when a stream finishes or detaches — is
@@ -81,6 +82,9 @@ class StreamingConfig:
     device: Any = "cuda"         # "cuda" (the step kernel; h table resident
     # on the card, zero steady-state h bytes across the boundary) or "cpu"
     # (the plain torch step); "cuda" without a card raises
+    mxu: bool = False            # the reference's dense step layout
+    # (effective float32 W/U, no activation storage; csrc/q15_step_dense.cu
+    # on the card), within 1e-6 of the Q15 step per step
     batch_events: bool = False   # emit one columnar StreamEventBatch per
     # tick instead of per-stream StreamEvent objects (the fleet-scale path)
     ring_capacity: int = 256     # initial per-slot sample ring (grows 2x)
@@ -222,9 +226,10 @@ class StreamingEngine:
         self._num_cache: tuple[int, Any] | None = None
         self._num_events: dict[str, Any] = {}
         self._num_pub_tick = 0
+        self._num_tallied = False   # this tick's step tallies are counted
         self.kernel = Q15StreamStep(self.qp, act_scales=act_scales,
                                     naive_acts=naive_acts,
-                                    device=config.device)
+                                    device=config.device, mxu=config.mxu)
         self._device_resident = self.kernel.supports_device_state
         S, d = config.max_slots, self.kernel.input_dim
         self._h = (self.kernel.init_state_device(S) if self._device_resident
@@ -232,6 +237,12 @@ class StreamingEngine:
         self._h_inflight = False  # a step_resident launch is in flight:
         # _advance_begin must wait for its x/mask h2d copies before the
         # gather overwrites the pinned _x staging buffer they read from
+        self._h_pending = None    # fleet-installed lazy h view: a
+        # (fused_h, lo, hi) spec set by the fused device tick instead of an
+        # eager per-shard slice of the fused output every tick.  _resolve_h
+        # materializes it on first row-level access; every rebind of
+        # self._h to a fresh tensor clears it (a stale spec would let the
+        # fleet adopt pre-rebind state)
         self._h_prefetch = None   # identity-keyed (h, {slot: row}) one-shot
         # cache for batched snapshot pulls; every step/reset returns a NEW
         # h tensor (the kernel never updates in place), which invalidates it
@@ -518,7 +529,8 @@ class StreamingEngine:
         if reset:  # recycled slot: zero the previous stream's hidden state
             mask = np.arange(self.config.max_slots) == slot
             if self._device_resident:
-                self._h = self.kernel.reset_device(self._h, mask)
+                self._h = self.kernel.reset_device(self._resolve_h(), mask)
+                self._h_pending = None
             else:
                 self._h = self.kernel.reset(self._h, mask)
         self._steps[slot] = 0
@@ -534,7 +546,8 @@ class StreamingEngine:
             h0, steps0, wstep0, suppress0 = s.restore
             if self._device_resident:
                 self._h = self.kernel.set_rows_device(
-                    self._h, np.array([slot]), h0[None])
+                    self._resolve_h(), np.array([slot]), h0[None])
+                self._h_pending = None
             else:
                 self._h[slot] = torch.from_numpy(h0)
             self._steps[slot] = steps0
@@ -593,7 +606,8 @@ class StreamingEngine:
             # on the card.  Per-tick numeric tallies are skipped on the
             # resident path (a host recompute would defeat the zero-h-copy
             # contract); emission-row drift telemetry still applies.
-            h_new = self.kernel.step_resident(self._h, self._x, avail)
+            h_new = self.kernel.step_resident(self._resolve_h(), self._x,
+                                              avail)
             self._h_inflight = True
         else:
             if mon is not None:
@@ -602,6 +616,7 @@ class StreamingEngine:
             if mon is not None:
                 self.kernel.numeric_events = None
                 self._flush_numeric_events(mon)
+                self._num_tallied = True
         tr.rec("engine.kernel", t0, self._obs_shard)
         return self._advance_finish(handle, h_new)
 
@@ -642,6 +657,7 @@ class StreamingEngine:
             x[rows] = self._ring[heads % self._cap, rows]
         self._tracer.rec("engine.gather", t0, self._obs_shard)
         mon = self._numerics()
+        self._num_tallied = False
         if mon is not None:
             # input-range telemetry from the already-gathered staging slab
             # (runs on both the standalone _advance path and the fleet's
@@ -666,7 +682,24 @@ class StreamingEngine:
         avail, rows = handle
         t_fin = self._tracer.t()
         self._last_advanced = int(rows.size)
-        self._h = h_new
+        mon = self._numerics()
+        if mon is not None and not self._num_tallied \
+                and not self._device_resident:
+            # fused fleet tick: the group kernel stepped a cross-shard
+            # batch, so per-shard attribution recomputes this shard's
+            # advanced rows on the host from its pre-step state (self._h is
+            # still pre-step here).  Monitoring a fused fleet pays this
+            # recompute; it is off by default.
+            self.kernel.numeric_events = self._num_events
+            self.kernel.tally_numeric_events(self._h, self._x, rows)
+            self.kernel.numeric_events = None
+            self._flush_numeric_events(mon)
+            self._num_tallied = True
+        if h_new is not None:
+            self._h = h_new
+            self._h_pending = None
+        # h_new None: the fleet's fused device tick already installed this
+        # tick's output as a lazy view spec (FleetEngine._dispatch_group)
         if rows.size == self._head.size:     # steady state: every slot moved
             self._head += 1
             self._steps += 1
@@ -726,7 +759,9 @@ class StreamingEngine:
                 self._wstep[at_window] = 0
                 if self.config.reset_on_emit:
                     if self._device_resident:
-                        self._h = self.kernel.reset_device(self._h, at_window)
+                        self._h = self.kernel.reset_device(
+                            self._resolve_h(), at_window)
+                        self._h_pending = None
                     else:
                         self._h = self.kernel.reset(self._h, at_window)
             self._tracer.rec("engine.emit", t_emit, self._obs_shard)
@@ -783,13 +818,26 @@ class StreamingEngine:
     # ------------------------------------------------------------------
     # Internals
     # ------------------------------------------------------------------
+    def _resolve_h(self) -> torch.Tensor:
+        """Materialize the fleet-installed lazy h view, if any.  Fused
+        device ticks hand each shard a ``(fused_h, lo, hi)`` spec instead
+        of slicing the fused output for every shard every tick; the first
+        row-level access (emission, tap, snapshot, reset) takes the slice.
+        The spec survives materialization (it is the fleet's adoption
+        token) and is cleared only when ``self._h`` is rebound to a tensor
+        that is no longer a view of the fused output."""
+        if self._h is None:
+            big, lo, hi = self._h_pending
+            self._h = big[lo:hi]
+        return self._h
+
     def _h_rows(self, rows) -> np.ndarray:
         """Host values of the given hidden-state rows, device-agnostic:
         a plain fancy-index copy on the CPU path, a booked (k, H) d2h
         pull on the device-resident path (only the rows the host actually
         needs — emission, taps — ever cross the boundary)."""
         if self._device_resident:
-            return self.kernel.rows_to_host(self._h, rows)
+            return self.kernel.rows_to_host(self._resolve_h(), rows)
         return self._h.numpy()[np.asarray(rows)]
 
     def _h_row(self, slot: int) -> np.ndarray:
@@ -801,7 +849,8 @@ class StreamingEngine:
             cache = self._h_prefetch
             if cache is not None and cache[0] is self._h and slot in cache[1]:
                 return cache[1][slot].copy()
-            return self.kernel.rows_to_host(self._h, np.array([slot]))[0]
+            return self.kernel.rows_to_host(self._resolve_h(),
+                                            np.array([slot]))[0]
         return self._h[slot].numpy().copy()
 
     def prefetch_h(self, slots) -> None:
@@ -813,7 +862,7 @@ class StreamingEngine:
         if not self._device_resident or len(slots) == 0:
             return
         rows = np.asarray(slots)
-        h = self._h
+        h = self._resolve_h()
         vals = self.kernel.rows_to_host(h, rows)
         self._h_prefetch = (h, {int(s): v for s, v in zip(rows, vals)})
 

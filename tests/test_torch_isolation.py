@@ -42,11 +42,24 @@ import numpy as np
 from repro_torch import weights
 from repro_torch.core.quantization import QuantConfig, quantize_params
 from repro_torch.kernels.fastgrnn_cell.ops import Q15StreamStep
-k = Q15StreamStep(quantize_params(weights.random_params(0), QuantConfig()),
-                  device="cpu")
+qp = quantize_params(weights.random_params(0), QuantConfig())
+k = Q15StreamStep(qp, device="cpu")
 h = k.step(np.zeros((4, 16), np.float32), np.ones((4, 3), np.float32),
            np.ones(4, bool))
 assert h.shape == (4, 16)
+from repro_torch.serve.fleet import FleetConfig, FleetEngine, wire
+from repro_torch.serve.streaming import StreamingConfig
+fleet = FleetEngine(qp, FleetConfig(
+    shards=2, snapshot_every=2,
+    stream=StreamingConfig(max_slots=2, device="cpu", mxu=True)))
+assert type(fleet.shards[0].kernel.kernel).__name__ == "DenseStep"
+fleet.attach("s", np.ones((6, 3), np.float32), total_steps=6)
+fleet.step(); fleet.step()
+blob = wire.encode_stream_state(fleet.shards[fleet.shard_of("s")]
+                                .snapshot_stream("s"))
+assert wire.decode_stream_state(blob).steps == 2
+fleet.crash_shard(fleet.shard_of("s"))
+assert len(fleet.drain()) == 1
 assert not any(n == "jax" or n.startswith(("jax.", "repro."))
                or n == "repro" for n in sys.modules if sys.modules[n])
 print("ok", {len(port_modules())})
@@ -85,10 +98,15 @@ def test_default_device_raises_without_a_card():
     from repro_torch.kernels.fastgrnn_cell.kernel import make_fastgrnn_step
     from repro_torch.kernels.fastgrnn_cell.ops import Q15StreamStep
     from repro_torch.kernels.fastgrnn_cell.qstep import StepWeights
+    from repro_torch.serve.fleet import FleetEngine
     from repro_torch.serve.streaming import StreamingEngine
     qp = quantize_params(weights.random_params(0), QuantConfig())
+    sw = StepWeights.from_quantized(qp)
     for make in (lambda: Q15StreamStep(qp), lambda: StreamingEngine(qp),
-                 lambda: make_fastgrnn_step(StepWeights.from_quantized(qp))):
+                 lambda: make_fastgrnn_step(sw),
+                 lambda: make_fastgrnn_step(sw, mxu=True),
+                 lambda: Q15StreamStep(qp, mxu=True),
+                 lambda: FleetEngine(qp)):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
 
@@ -139,17 +157,25 @@ def test_find_nvcc_raises_when_absent(monkeypatch, tmp_path):
 
 
 def test_cuda_source_holds_the_numerics_contract():
-    """The flags and intrinsics that make the kernel bitwise equal to the
-    plain version (checked here; the kernel itself runs on the card)."""
+    """The flags and intrinsics that make each kernel bitwise equal to its
+    plain version (checked here; the kernels themselves run on the card):
+    no FMA contraction, no fast math, explicit round-to-nearest ops."""
     from repro_torch.kernels import _build
-    src = (PORT / "csrc" / "q15_step.cu").read_text()
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "-prec-div=true" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
-    for needle in ("__fdiv_rn", "rintf", "__float2int_rz", "__fmul_rn",
-                   "__fadd_rn", 'extern "C"', "cudaGetLastError"):
-        assert needle in src, needle
-    assert "roundf(" not in src and "__fmaf" not in src
+    sources = {p.name: p.read_text() for p in (PORT / "csrc").glob("*.cu")}
+    assert set(sources) == {"q15_step.cu", "q15_step_dense.cu"}
+    for name, src in sources.items():
+        needles = ["__float2int_rz", "__fmul_rn", "__fadd_rn", "__fsub_rn",
+                   'extern "C"', "cudaGetLastError"]
+        if name == "q15_step.cu":       # Q15 activation storage
+            needles += ["__fdiv_rn", "rintf"]
+        for needle in needles:
+            assert needle in src, (name, needle)
+        for banned in ("roundf(", "__fmaf", "fmaf(", "fast_math", "__expf",
+                       "wmma", "mma."):
+            assert banned not in src, (name, banned)
 
 
 def test_hapt_loader_reads_nothing_outside_given_root(monkeypatch):

@@ -193,25 +193,24 @@ def test_kernel_wrapper_cpu_runs_plain_and_counts_no_launch():
 
 
 def test_kernel_wrapper_rejects_bad_inputs():
+    """Both step wrappers (the Q15 step and, with ``mxu=True``, the dense
+    layout) refuse what their kernels do not take."""
     sw = qstep.StepWeights.from_quantized(models(True, "deployed")[0])
-    k = make_fastgrnn_step(sw, device="cpu")
     h = torch.zeros(8, 16)
     x = torch.zeros(8, 3)
     m = torch.ones(8, dtype=torch.bool)
-    with pytest.raises(TypeError):
-        k(h.double(), x, m)
-    with pytest.raises(TypeError):
-        k(h, x, m.to(torch.uint8))
-    with pytest.raises(ValueError):
-        k(h, torch.zeros(8, 4), m)
-    with pytest.raises(ValueError):
-        k(h, x, torch.ones(7, dtype=torch.bool))
-    with pytest.raises(ValueError):
-        k(torch.zeros(16, 8).T, x, m)      # not contiguous
-    with pytest.raises(NotImplementedError, match="B2"):
-        make_fastgrnn_step(sw, device="cpu", mxu=True)
-    with pytest.raises(NotImplementedError, match="B2"):
-        ops.Q15StreamStep(models(True, "deployed")[0], device="cpu", mxu=True)
+    for mxu in (False, True):
+        k = make_fastgrnn_step(sw, device="cpu", mxu=mxu)
+        with pytest.raises(TypeError):
+            k(h.double(), x, m)
+        with pytest.raises(TypeError):
+            k(h, x, m.to(torch.uint8))
+        with pytest.raises(ValueError):
+            k(h, torch.zeros(8, 4), m)
+        with pytest.raises(ValueError):
+            k(h, x, torch.ones(7, dtype=torch.bool))
+        with pytest.raises(ValueError):
+            k(torch.zeros(16, 8).T, x, m)      # not contiguous
 
 
 def test_device_state_api_semantics_on_cpu_tensors():
