@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving and window paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power
-   limit; TF32 is switched off for matmuls and cuDNN (no matmul or
-   convolution runs on these paths, so this only pins the setting).
-2. build both step kernels (``src/repro_torch/csrc/q15_step.cu``, K1, and
-   ``q15_step_dense.cu``, K2) with nvcc, one process per source, started
-   together.
+   limit; TF32 is switched off for matmuls and cuDNN (the window path's
+   FP32 cell and classifier head run float32 matmuls).
+2. build every kernel (``src/repro_torch/csrc/``: ``q15_step.cu`` K1,
+   ``q15_step_dense.cu`` K2, ``fastgrnn_window.cu`` K3, ``lut_act.cu``
+   K4) with nvcc, one process per source, started together.
 3. K1 vs plain on the card: S = 131,072 streams at paper width, low- and
    full-rank, deployed / calibrated / naive activation storage, about a
    third of the rows masked, 2 % of them driven into LUT saturation, 128
@@ -23,6 +23,13 @@ Phases (any failure exits non-zero; nothing is caught):
    within 1e-6 of K1 after one step in deployed storage (the reference's
    bound for its dense layout) on 4,096 rows drawn like the reference's
    test; K2's runtime-width instantiation is checked at H = 12, d = 5.
+   Then K4 vs ``core.lut.lut_eval`` bitwise for every fn x mode x
+   {float32, bfloat16} on 2^24 values led by every edge (bucket edges,
+   +-8 and their neighbours, +-0, +-inf, NaN), and on an unaligned view;
+   and K3 vs ``qstep.window_scan`` bitwise on h and the whole trajectory
+   at B = 131,072 windows x T = 128 (low and full rank, the plain scan on
+   the card against the CPU's on 4,096 rows), its runtime-width code at
+   H = 12, d = 5.
 5. the single-engine main path: ``StreamingEngine.from_artifact`` on
    ``cuda`` with 131,072 slots over an artifact (seeded PTQ at
    ``fastgrnn_har`` width, round-tripped through ``.fgar``); 131,072 +
@@ -33,7 +40,21 @@ Phases (any failure exits non-zero; nothing is caught):
    hidden-state byte may go host-to-device.
 6. a profiled steady window of that path (torch.profiler, host and
    device): the step kernel's device time and the device's busy share.
-7. the fleet main path on K2: ``FleetEngine.from_artifact`` with 4 shards
+7. the window path (Table VI, Sec. VI-A) on the 3,399-window synthetic
+   test split and the artifact's dequantized params: p2 the K1 engine
+   (bitwise against the scalar ``QRuntime`` on 32 windows, logits and
+   trajectories), p3 K3 through ``fastgrnn_window_kernel`` + the head
+   (h and trajectory bitwise equal to ``window_scan`` on the same inputs),
+   p1 ``core.fastgrnn.forward_window`` with ``kernels.lut_act.ops``'
+   ``lut_sigmoid``/``lut_tanh`` (2 x 128 K4 launches, each output bitwise
+   equal to ``lut_eval`` on the same tensor); p3 must agree with p2 on
+   >= 99.9 % of the windows and p1 on >= 97 %; K3's trajectories must be
+   within the reference's 2e-5 of the engine's on the first 100 windows,
+   and the warm-up statistics of those windows come from both.  Then K3
+   over the first window of each of phase 5's 131,072 streams (bitwise
+   equal to ``window_scan``), >= 99.9 % of predictions equal to the K1
+   engine's events; K3 launched twice in all.
+8. the fleet main path on K2: ``FleetEngine.from_artifact`` with 4 shards
    x 32,768 slots, ``mxu=True``, the same streams, a live migration of 64
    streams and a decommission / recommission of one shard mid-run.  K2
    launches must equal the ticks that advanced (one device group), no
@@ -41,16 +62,18 @@ Phases (any failure exits non-zero; nothing is caught):
    events must be bitwise those of a CPU fleet on ``step_dense``, and at
    least 99.9 % of the windows' predictions must equal the K1 engine's.
    Then a profiled steady window of the fleet, as in phase 6.
-8. the same fleet on K1 (``mxu=False``): every stream's events must be
+9. the same fleet on K1 (``mxu=False``): every stream's events must be
    bitwise those of the single engine (shard-count invariance on the card).
-9. failover: 4 shards x 4,096 slots on K2, snapshots every 16 ticks, one
-   crash at each tick phase; the events must be bitwise those of the same
-   run without crashes.  The width is cut from 131,072 because every
-   snapshot encodes each live stream in Python.
-10. time K1 and K2 and their plain steps per launch at S = 131,072 (CUDA
-    events over launches queued behind a sleep, after warm-up, over input
-    sets larger than L2; the profiler's device time and the host's enqueue
-    cost beside them) and their HBM bound.
+10. failover: 4 shards x 4,096 slots on K2, snapshots every 16 ticks, one
+    crash at each tick phase; the events must be bitwise those of the same
+    run without crashes.  The width is cut from 131,072 because every
+    snapshot encodes each live stream in Python.
+11. time every kernel and its plain version at its main path's shapes
+    (K1/K2 at S = 131,072; K3 at B = 131,072 x T = 128; K4 over 2^26
+    float32 and bfloat16 values): CUDA events over calls queued behind a
+    sleep, after warm-up, over input sets larger than L2; the profiler's
+    device time and the host's enqueue cost beside them; each kernel's
+    bound (bytes over 3.35 TB/s or fp32 instructions over 33.5 T/s).
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -93,7 +116,21 @@ PROFILE_WARM = 10         # untraced ticks before the profiled window
 PROFILE_TICKS = 20        # ticks in the profiled steady window
 TIMING_SETS = 8           # input sets cycled by the timing phase (> L2)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS = 67e12         # H100 SXM data sheet, fp32 outside tensor cores
+# fp32 add or multiply instructions per second outside the tensor cores:
+# the data sheet's 67 TFLOP/s counts an FMA as two operations, and these
+# kernels are built without FMA (--fmad=false), so each add and each
+# multiply is one instruction at half that rate (132 SMs x 128 lanes x
+# ~1.98 GHz)
+FP32_OPS_PER_S = 67e12 / 2
+W_BATCH = 131_072         # window scan: windows per launch ...
+W_STEPS = 128             # ... of this many samples (one paper window)
+LUT_ELEMS = 1 << 24       # LUT kernel-vs-plain elements per configuration
+LUT_TIMING_ELEMS = 1 << 26
+LUT_FNS = ("sigmoid", "tanh", "silu", "gelu", "softplus")
+TABLE6_SCALAR = 32        # Table VI: windows re-run by the scalar QRuntime
+WARMUP_WINDOWS = 100      # Sec. VI-A: windows characterized (paper: 100)
+MIN_K3_AGREEMENT = 0.999  # K3 windows whose prediction equals the K1 path's
+MIN_FP32_AGREEMENT = 0.97  # FP32 + K4 LUT path vs the K1 path (reference)
 
 
 def fail(msg: str) -> None:
@@ -147,12 +184,17 @@ def environment(torch) -> str:
     return card
 
 
+KERNELS = ("q15_step", "q15_step_dense", "fastgrnn_window", "lut_act")
+
+
 def build() -> None:
-    """Both kernels, one nvcc each, started together; each one's build time
+    """Every kernel, one nvcc each, started together; each one's build time
     and what ptxas reports of its registers, shared memory and spills."""
     from repro_torch.kernels import _build
+    if tuple(sorted(_build.kernel_names())) != tuple(sorted(KERNELS)):
+        fail(f"kernel sources {_build.kernel_names()} != {sorted(KERNELS)}")
     t0 = time.perf_counter()
-    built = _build.build_all(["q15_step", "q15_step_dense"])
+    built = _build.build_all()
     wall = time.perf_counter() - t0
     for name, (lib, dt, log) in built.items():
         print(f"build: {lib.name} in {dt:.2f} s")
@@ -160,7 +202,7 @@ def build() -> None:
             if any(k in line for k in ("Compiling entry", "registers",
                                        "stack frame")):
                 print(f"  {line.strip()}")
-    print(f"build: both kernels in {wall:.2f} s (parallel nvcc)")
+    print(f"build: {len(built)} kernels in {wall:.2f} s (parallel nvcc)")
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +353,114 @@ def dense_vs_plain(torch, np, dev) -> float:
         fail("K2 at H=12, d=5 (runtime-width code) != plain dense")
     print(f"K2==plain dense bitwise at H=12, d=5 (runtime-width code), "
           f"{CPU_ROWS} rows")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (cont.): K4 (LUT activation) and K3 (window scan) vs plain
+# ---------------------------------------------------------------------------
+
+def lut_inputs(torch, np, n: int, dev):
+    """n float32 values, N(0, 36), led by every edge the LUT defines: the
+    257 bucket edges, +-8 and the floats next to them (float32 and
+    bfloat16 neighbours), +-0, +-inf, NaN and huge values."""
+    f32 = np.float32
+    edges = -8.0 + np.arange(257, dtype=f32) / f32(16.0)
+    special = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e30, -1e30, 7.96875,
+               -7.96875, 8.0625, -8.0625]
+    for v in (f32(8.0), f32(-8.0)):
+        special += [np.nextafter(v, f32(0)), np.nextafter(v, f32(2 * v))]
+    lead = np.concatenate([edges, np.nextafter(edges, f32(np.inf)),
+                           np.nextafter(edges, f32(-np.inf)),
+                           np.asarray(special, f32)]).astype(f32)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn(n, generator=g, device=dev) * 6.0
+    x[:len(lead)] = torch.from_numpy(lead).to(dev)
+    return x
+
+
+def lut_vs_plain(torch, np, dev) -> float:
+    """K4 against ``core.lut.lut_eval`` bitwise for every fn x mode x
+    {float32, bfloat16} on LUT_ELEMS values with every edge, and on an
+    unaligned, odd-length view (the element-wise code path)."""
+    from repro_torch.kernels.lut_act.kernel import LUTAct
+    act = LUTAct()
+    x32 = lut_inputs(torch, np, LUT_ELEMS + 1, dev)
+    t0 = time.perf_counter()
+    max_err = 0.0
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        for x in (x32[:LUT_ELEMS].to(dtype), x32[1:].to(dtype)[1:]):
+            for fn in LUT_FNS:
+                for mode in ("nearest", "lerp"):
+                    y = act(x, fn, mode=mode)
+                    want = act.plain(x, fn, mode=mode)
+                    if y.dtype != dtype or not torch.equal(y.view(bits),
+                                                           want.view(bits)):
+                        bad = (y.view(bits) != want.view(bits)).nonzero()
+                        i = int(bad[0, 0]) if len(bad) else 0
+                        fail(f"K4 != lut_eval ({fn}, {mode}, {dtype}, "
+                             f"{x.numel()} values): {len(bad)} differ, first "
+                             f"x={float(x[i])!r}: {float(y[i])!r} vs "
+                             f"{float(want[i])!r}")
+                    d = (y.float() - want.float()).nan_to_num(0.0).abs()
+                    max_err = max(max_err, float(d.max()))
+    torch.cuda.synchronize()
+    print(f"K4==lut_eval bitwise: {len(LUT_FNS)} fns x nearest/lerp x "
+          f"float32/bfloat16 on {LUT_ELEMS} values (bucket edges, +-8 and "
+          f"their neighbours, +-0, +-inf, NaN) and on an unaligned "
+          f"{LUT_ELEMS - 1}-value view, in {time.perf_counter() - t0:.1f} s")
+    return max_err
+
+
+def window_vs_plain(torch, np, dev) -> float:
+    """K3 against ``qstep.window_scan`` bitwise on h and the whole
+    trajectory at W_BATCH x W_STEPS (low and full rank; 2 % of the inputs
+    large enough to saturate the LUTs), the plain scan on the card against
+    the CPU's on CPU_ROWS rows, and K3's runtime-width code at H=12, d=5."""
+    from repro_torch import weights
+    from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
+
+    def same(a, b):
+        return bits_equal(a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1]))
+
+    max_err = 0.0
+    for low_rank in (True, False):
+        t0 = time.perf_counter()
+        params = weights.random_params(SEED, low_rank=low_rank)
+        scan, cpu = WindowScan(params, dev), WindowScan(params, "cpu")
+        g = torch.Generator(device=dev).manual_seed(SEED + 5)
+        xs = torch.randn(W_STEPS, W_BATCH, 3, generator=g, device=dev)
+        big = torch.rand(W_STEPS, W_BATCH, 1, generator=g, device=dev) < 0.02
+        xs = xs * torch.where(big, 200.0, 1.0)
+        h, traj = scan(xs)
+        if not scan.fixed_width(traj, h):
+            fail("K3 did not run its fixed-width code at paper width")
+        h_p, traj_p = scan.plain(xs)
+        if not (same(traj, traj_p) and bits_equal(h, h_p)):
+            fail(f"K3 != window_scan (low_rank={low_rank}): "
+                 f"{first_diff(traj.reshape(-1, 16), traj_p.reshape(-1, 16))}")
+        max_err = max(max_err, float((traj - traj_p).abs().max()))
+        _, traj_c = cpu(xs[:, :CPU_ROWS].cpu().contiguous())
+        if not same(traj_p[:, :CPU_ROWS].cpu(), traj_c):
+            fail(f"plain window_scan cuda != cpu (low_rank={low_rank})")
+        torch.cuda.synchronize()
+        print(f"K3==window_scan bitwise: {'low' if low_rank else 'full'}-rank "
+              f"B={W_BATCH} x T={W_STEPS}, h and the whole trajectory "
+              f"(fixed-width code; cpu plain {CPU_ROWS} rows) in "
+              f"{time.perf_counter() - t0:.1f} s")
+    params = weights.random_params(SEED, low_rank=True, hidden_dim=12,
+                                   input_dim=5)
+    scan = WindowScan(params, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    xs = torch.randn(W_STEPS, CPU_ROWS, 5, generator=g, device=dev)
+    h, traj = scan(xs)
+    h_p, traj_p = scan.plain(xs)
+    if scan.fixed_width(traj, h) or not (same(traj, traj_p)
+                                         and bits_equal(h, h_p)):
+        fail("K3 at H=12, d=5 (runtime-width code) != window_scan")
+    print(f"K3==window_scan bitwise at H=12, d=5 (runtime-width code), "
+          f"{CPU_ROWS} windows x T={W_STEPS}")
     return max_err
 
 
@@ -482,6 +632,179 @@ def main_path(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the window path (Table VI three-path agreement, warm-up, scale)
+# ---------------------------------------------------------------------------
+
+def window_path(torch, np, dev, art) -> int:
+    """Table VI on the paper's 3,399-window synthetic test split, the
+    artifact's dequantized params for the integer and kernel paths:
+    p2 the K1 ``StreamingEngine`` (bitwise against the scalar ``QRuntime``
+    on TABLE6_SCALAR windows, logits and trajectories), p3 K3 through
+    ``fastgrnn_window_kernel`` with the head on its final h (h and the
+    whole trajectory bitwise against the plain ``window_scan`` on the same
+    inputs), p1 ``core.fastgrnn.forward_window`` on the float params with
+    K4's ``lut_sigmoid``/``lut_tanh`` (each output bitwise against
+    ``lut_eval`` on the same tensor).  Then the Sec. VI-A warm-up of the
+    first WARMUP_WINDOWS windows from K3's and from the engine's
+    trajectories.  Returns p1's K4 launches."""
+    from repro_torch.core import fastgrnn as fg
+    from repro_torch.core import warmup
+    from repro_torch.core.qruntime import QRuntime
+    from repro_torch.data import hapt
+    from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
+    from repro_torch.kernels.fastgrnn_cell.ops import fastgrnn_window_kernel
+    from repro_torch.kernels.lut_act import ops as lut_ops
+    from repro_torch.kernels.lut_act.kernel import LUTAct
+    from repro_torch.serve.streaming import StreamingConfig, StreamingEngine
+
+    windows = hapt.generate_synthetic("test", SEED).windows
+    N, T, _ = windows.shape
+    ids = [f"w{i}" for i in range(N)]
+    t0 = time.perf_counter()
+    eng = StreamingEngine.from_artifact(art, StreamingConfig(
+        max_slots=N, batch_events=True, device=dev))
+    for i, sid in enumerate(ids):
+        eng.attach(sid, windows[i], total_steps=T,
+                   record_trajectory=i < WARMUP_WINDOWS)
+    ev = per_stream(eng.drain(), ids)
+    if any(not ev[sid] or ev[sid][-1][2] != T for sid in ids):
+        fail("Table VI: a window closed without its 128-sample event")
+    p2 = np.array([ev[sid][-1][3] for sid in ids])
+    t_p2 = time.perf_counter() - t0
+    rt = QRuntime.from_artifact(art)
+    for i in range(TABLE6_SCALAR):
+        logits, traj = rt.run_window(windows[i], return_trajectory=True)
+        if ev[ids[i]][-1][5] != logits.tobytes() or \
+                eng.trajectory(ids[i]).tobytes() != traj.tobytes():
+            fail(f"Table VI: K1 engine != scalar QRuntime on window {i}")
+
+    deq = art.require_qp().dequantize()
+    xs = torch.from_numpy(np.ascontiguousarray(windows.transpose(1, 0, 2)))
+    xs = xs.to(dev)
+    t0 = time.perf_counter()
+    h, traj = fastgrnn_window_kernel(deq, xs, device=dev)
+    head_w, head_b = deq["head_w"].to(dev), deq["head_b"].to(dev)
+    p3 = (h @ head_w + head_b).argmax(-1).cpu().numpy()
+    t_p3 = time.perf_counter() - t0
+    H = h.shape[1]
+    h_p, traj_p = WindowScan(deq, dev).plain(xs)
+    if not bits_equal(h, h_p):
+        fail(f"Table VI p3: K3's h != window_scan's: {first_diff(h, h_p)}")
+    if not bits_equal(traj.reshape(-1, H), traj_p.reshape(-1, H)):
+        fail(f"Table VI p3: K3's trajectory != window_scan's: "
+             f"{first_diff(traj.reshape(-1, H), traj_p.reshape(-1, H))}")
+    del h_p, traj_p
+
+    act = LUTAct()
+    checked = []
+
+    def k4_checked(op, fn):
+        def f(v):
+            y = op(v)
+            want = act.plain(v, fn)
+            if not bits_equal(y, want):
+                fail(f"Table VI p1: K4 {fn} != lut_eval on step "
+                     f"{len(checked) // 2}: {first_diff(y, want)}")
+            checked.append(fn)
+            return y
+        return f
+
+    fp = {k: torch.from_numpy(v).to(dev) for k, v in art.params.items()}
+    LUTAct.launches = 0                 # count p1's run only
+    t0 = time.perf_counter()
+    logits1 = fg.forward_window(
+        fp, xs, sigma=k4_checked(lut_ops.lut_sigmoid, "sigmoid"),
+        tanh=k4_checked(lut_ops.lut_tanh, "tanh"))
+    p1 = logits1.argmax(-1).cpu().numpy()
+    t_p1 = time.perf_counter() - t0
+    k4_launches = LUTAct.launches
+    if k4_launches != 2 * T or len(checked) != 2 * T:
+        fail(f"p1 launched K4 {k4_launches} times and checked "
+             f"{len(checked)} outputs, want 2 x {T}")
+
+    a32, a12, a13 = (float(np.mean(p3 == p2)), float(np.mean(p1 == p2)),
+                     float(np.mean(p1 == p3)))
+    print(f"Table VI ({N} synthetic test windows, seed {SEED}): p3 K3 vs "
+          f"p2 K1 engine {a32:.4%} ({int(np.sum(p3 == p2))}/{N}); p1 FP32+K4 "
+          f"vs p2 {a12:.4%}; p1 vs p3 {a13:.4%}; K1 engine bitwise equal to "
+          f"the scalar QRuntime on {TABLE6_SCALAR} windows (logits and "
+          f"trajectories); K3's h and trajectory bitwise equal to "
+          f"window_scan's, each of p1's {len(checked)} K4 outputs bitwise "
+          f"equal to lut_eval's; wall p2 {t_p2:.2f} s, p3 {t_p3 * 1e3:.1f} "
+          f"ms, p1 {t_p1 * 1e3:.1f} ms with its checks")
+    if a32 < MIN_K3_AGREEMENT:
+        fail(f"K3 vs K1 agreement {a32:.4%} < {MIN_K3_AGREEMENT:.1%}")
+    if a12 < MIN_FP32_AGREEMENT:
+        fail(f"FP32+K4 vs K1 agreement {a12:.4%} < {MIN_FP32_AGREEMENT:.0%}")
+
+    n = WARMUP_WINDOWS
+    k_traj = traj[:, :n].cpu().numpy()
+    e_traj = np.stack([eng.trajectory(ids[i]) for i in range(n)], axis=1)
+    err = np.abs(k_traj - e_traj).max(axis=(0, 2))
+    print(f"K3 trajectory vs the K1 engine's, first {n} windows: max |diff| "
+          f"{float(err.max()):.3e} ({int(np.sum(err > 2e-5))} windows over "
+          f"the reference's 2e-5)")
+    if err.max() > 2e-5:
+        fail(f"K3 trajectory vs the K1 engine's: {float(err.max()):.3e} > "
+             f"2e-5 (the reference's bound, tests/test_qruntime.py)")
+    stats = {}
+    for name, tr in (("K3", k_traj), ("K1 engine", e_traj)):
+        logits = tr @ deq["head_w"].numpy() + deq["head_b"].numpy()
+        preds = logits.argmax(-1).T                          # (n, T)
+        stats[name] = (warmup.characterize(preds),
+                       [warmup.stabilization_step(p) for p in preds])
+        print(f"warm-up (Sec. VI-A) from {name} trajectories: "
+              f"{stats[name][0].row()}")
+    differ = sum(a != b for a, b in zip(stats["K3"][1],
+                                        stats["K1 engine"][1]))
+    print(f"warm-up: t* differs between K3 and the K1 engine on {differ} of "
+          f"{n} windows")
+    return k4_launches
+
+
+def window_at_scale(torch, np, dev, art, feeds, single) -> None:
+    """K3 over the first 128-sample window of each of the main path's
+    SLOTS streams, h and trajectory bitwise against the plain
+    ``window_scan``: predictions against the K1 engine's event at sample
+    128 of each stream that was not detached before it."""
+    from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
+    from repro_torch.kernels.fastgrnn_cell.ops import fastgrnn_window_kernel
+    t0 = time.perf_counter()
+    x = np.empty((W_STEPS, SLOTS, 3), np.float32)
+    for i in range(SLOTS):
+        x[:, i] = feeds.samples(i)[:W_STEPS]
+    setup = time.perf_counter() - t0
+    deq = art.require_qp().dequantize()
+    t0 = time.perf_counter()
+    h, traj = fastgrnn_window_kernel(deq, x, device=dev)
+    pred = (h @ deq["head_w"].to(dev) + deq["head_b"].to(dev)).argmax(-1)
+    pred = pred.cpu().numpy()
+    wall = time.perf_counter() - t0
+    h_p, traj_p = WindowScan(deq, dev).plain(torch.from_numpy(x).to(dev))
+    H = h.shape[1]
+    if not (bits_equal(h, h_p) and bits_equal(traj.reshape(-1, H),
+                                              traj_p.reshape(-1, H))):
+        fail(f"K3 at scale != window_scan: "
+             f"{first_diff(traj.reshape(-1, H), traj_p.reshape(-1, H))}")
+    del traj, h_p, traj_p
+    n = same = 0
+    for i in range(SLOTS):
+        first = [e for e in single[f"s{i}"] if e[1] == W_STEPS]
+        if first:
+            n += 1
+            same += first[0][3] == pred[i]
+    share = same / n
+    print(f"K3 at scale: {SLOTS} streams' first windows in one launch, "
+          f"{wall * 1e3:.1f} ms wall with h2d and head (inputs built in "
+          f"{setup:.1f} s), h and trajectory bitwise equal to window_scan's; "
+          f"{same} of {n} predictions ({share:.4%}) equal the "
+          f"K1 engine's events at sample {W_STEPS} "
+          f"({SLOTS - n} streams detached before it)")
+    if share < MIN_K3_AGREEMENT:
+        fail(f"K3 at scale: agreement {share:.4%} < {MIN_K3_AGREEMENT:.1%}")
+
+
+# ---------------------------------------------------------------------------
 # trace helpers (torch.profiler)
 # ---------------------------------------------------------------------------
 
@@ -560,7 +883,7 @@ def profiled_window(torch, eng, feeds, kernel: str = "q15_step_kernel",
 
 
 # ---------------------------------------------------------------------------
-# phases 7-9: the fleet
+# phases 8-10: the fleet
 # ---------------------------------------------------------------------------
 
 def fleet_kernels(fleet) -> list:
@@ -816,79 +1139,121 @@ def failover(torch, np, dev, art, feeds) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: timing
+# phase 11: timing
 # ---------------------------------------------------------------------------
 
-def timing(torch, sw) -> dict:
-    """Per-launch times of K1 and K2 and of their plain steps at S =
-    131,072, side by side in one process.
-
-    Device time: the launches are queued behind ``torch.cuda._sleep`` so
-    that they run back to back on the card whatever the host's enqueue
-    rate, timed with CUDA events (``prefilled`` says the queue really was
-    full when the host finished enqueuing).  Host time: the host's enqueue
-    cost per call, timed back to back.  Each kernel's device time is also
-    read from a torch.profiler trace.  Rounds run K1, K2, plain K1, plain
-    K2 and then in the reverse order."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.fastgrnn_cell.kernel import make_fastgrnn_step
-    from repro_torch.kernels.fastgrnn_cell.ops import Q15StreamStep
-
-    dev = torch.device("cuda", 0)
-    steps = {"q15_step": make_fastgrnn_step(sw, device=dev),
-             "q15_step_dense": make_fastgrnn_step(sw, device=dev, mxu=True)}
-    S, H, d = S_KERNEL, sw.hidden_dim, sw.input_dim
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    sets = [(torch.randn(S, H, generator=g, device=dev) * 0.5,
-             torch.randn(S, d, generator=g, device=dev),
-             torch.ones(S, dtype=torch.bool, device=dev))
-            for _ in range(TIMING_SETS)]
-    in_bytes = sum(t.numel() * t.element_size() for st in sets for t in st)
-
-    def event():
-        return torch.cuda.Event(enable_timing=True)
-
-    a, b = event(), event()
+def sleep_rate(torch) -> float:
+    """Cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
     torch.cuda._sleep(10_000_000)
     b.record()
     torch.cuda.synchronize()
-    cycles_per_ms = 10_000_000 / a.elapsed_time(b)
+    return 10_000_000 / a.elapsed_time(b)
 
-    def per_launch(fn, n, warm):
-        for i in range(warm):
-            fn(*sets[i % TIMING_SETS])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            fn(*sets[i % TIMING_SETS])
-        host_ms = (time.perf_counter() - t0) * 1e3 / n
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(cycles_per_ms * (3 * host_ms * n + 5)))
-        a, b = event(), event()
-        a.record()
-        for i in range(n):
-            fn(*sets[i % TIMING_SETS])
-        b.record()
-        prefilled = not a.query()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / n, host_ms, prefilled
 
-    kern = {n: [] for n in steps}
-    plain = {n: [] for n in steps}
-    order = list(steps)
+def queued(torch, fn, sets, n: int, warm: int, cycles_per_ms: float):
+    """(device ms, host ms, prefilled) per call of ``fn`` over ``sets``:
+    the host's enqueue cost timed back to back, then the calls queued
+    behind ``torch.cuda._sleep`` and timed with CUDA events, so they run
+    back to back on the card whatever the host's rate (``prefilled`` says
+    the queue really was full when the host finished enqueuing)."""
+    for i in range(warm):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(*sets[i % len(sets)])
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(cycles_per_ms * (3 * host_ms * n + 5)))
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for i in range(n):
+        fn(*sets[i % len(sets)])
+    b.record()
+    prefilled = not a.query()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n, host_ms, prefilled
+
+
+def timing_jobs(torch, sw, art) -> dict:
+    """Every kernel at its main path's shapes, with its plain version, its
+    input sets (together past the 50 MB L2), its call counts (kernel n,
+    warm-up; plain n, warm-up) and the bytes and fp32 operations its
+    function needs (each input read once, each output written once)."""
+    from repro_torch.kernels.fastgrnn_cell.kernel import (WindowScan,
+                                                          make_fastgrnn_step)
+    from repro_torch.kernels.fastgrnn_cell.ops import Q15StreamStep
+    from repro_torch.kernels.lut_act.kernel import LUTAct
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    S, H, d = S_KERNEL, sw.hidden_dim, sw.input_dim
+    sets = [(torch.randn(S, H, generator=g, device=dev) * 0.5,
+             torch.randn(S, d, generator=g, device=dev),
+             torch.ones(S, dtype=torch.bool, device=dev))
+            for _ in range(TIMING_SETS)]
+    jobs = {}
+    for name, mxu in (("q15_step", False), ("q15_step_dense", True)):
+        k = make_fastgrnn_step(sw, device=dev, mxu=mxu)
+        roof = Q15StreamStep(sw, device=dev, mxu=mxu).roofline(1.0)
+        jobs[name] = dict(
+            kernel=k, plain=k.plain, sets=sets, counts=(200, 40, 6, 4),
+            bytes=S * roof["hbm_bytes_per_stream_step"],
+            ops=S * roof["model_flops_per_stream_step"],
+            what=f"S={S} (one {S * H * 4} B output block reused)")
+    scan = WindowScan(art.require_qp().dequantize(), dev)
+    xsets = [(torch.randn(W_STEPS, W_BATCH, d, generator=g, device=dev),)
+             for _ in range(2)]
+    jobs["fastgrnn_window"] = dict(
+        kernel=scan, plain=scan.plain, sets=xsets, counts=(20, 3, 2, 1),
+        bytes=(4 * d + 4 * H) * W_STEPS * W_BATCH + 4 * H * W_BATCH,
+        ops=(2 * (d * H + H * H) + 13 * H) * W_STEPS * W_BATCH,
+        what=f"B={W_BATCH} windows x T={W_STEPS}")
+    act = LUTAct()
+    n = LUT_TIMING_ELEMS
+    for name, dtype in (("lut_act", torch.float32),
+                        ("lut_act bfloat16", torch.bfloat16)):
+        lsets = [((torch.randn(n, generator=g, device=dev) * 6).to(dtype),)
+                 for _ in range(2)]
+        jobs[name] = dict(
+            kernel=lambda x: act(x, "tanh"),
+            plain=lambda x: act.plain(x, "tanh"), sets=lsets,
+            counts=(50, 5, 10, 2),
+            bytes=2 * n * torch.finfo(dtype).bits // 8, ops=4 * n,
+            what=f"tanh nearest over {n} {str(dtype)[6:]} values")
+    for job in jobs.values():
+        job["in_bytes"] = sum(t.numel() * t.element_size()
+                              for st in job["sets"] for t in st)
+    return jobs
+
+
+def timing(torch, sw, art) -> dict:
+    """Per-call times of every kernel and of its plain version at the
+    shapes of its main path, side by side in one process: device time of
+    calls queued behind a sleep (CUDA events) and the host's enqueue cost
+    (:func:`queued`), each kernel's device time also read from a
+    torch.profiler trace, and its bound: the larger of its bytes over
+    3.35 TB/s and its fp32 operations over the FMA-free instruction rate.
+    Rounds run every kernel, then every plain version, and then both in
+    the reverse order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    jobs = timing_jobs(torch, sw, art)
+    cycles_per_ms = sleep_rate(torch)
+    kern = {n: [] for n in jobs}
+    plain = {n: [] for n in jobs}
+    order = list(jobs)
     for names in (order, order[::-1]):
         for n in names:
-            kern[n].append(per_launch(steps[n], 200, 40))
+            nk, wk, _, _ = jobs[n]["counts"]
+            kern[n].append(queued(torch, jobs[n]["kernel"], jobs[n]["sets"],
+                                  nk, wk, cycles_per_ms))
         for n in names:
-            plain[n].append(per_launch(steps[n].plain, 6, 4))
-    prof_us = {}
-    for n, k in steps.items():
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(100):
-                k(*sets[i % TIMING_SETS])
-            torch.cuda.synchronize()
-        prof_us[n] = kernel_device_us(prof, f"{n}_kernel")
+            _, _, npl, wpl = jobs[n]["counts"]
+            plain[n].append(queued(torch, jobs[n]["plain"], jobs[n]["sets"],
+                                   npl, wpl, cycles_per_ms))
 
     def fmt(rows, digits):
         return ", ".join(f"device {r[0] * 1e3:.{digits}f} us / host "
@@ -897,33 +1262,37 @@ def timing(torch, sw) -> dict:
                          for r in rows)
 
     out = {}
-    for n in steps:
-        roof = Q15StreamStep(sw, device=dev, mxu=n == "q15_step_dense"
-                             ).roofline(1.0)
-        nbytes = S * roof["hbm_bytes_per_stream_step"]
-        nops = S * roof["model_flops_per_stream_step"]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_FLOPS * 1e3
+    for n, job in jobs.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(job["counts"][0]):
+                job["kernel"](*job["sets"][i % len(job["sets"])])
+            torch.cuda.synchronize()
+        prof_k = kernel_device_us(prof, f"{n.split()[0]}_kernel")
+        t_bytes = job["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = job["ops"] / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         ms = min(r[0] for r in kern[n])
         host_ms = min(r[1] for r in kern[n])
-        prof_k = prof_us[n]
-        print(f"timing {n} S={S} over {TIMING_SETS} input sets ({in_bytes} "
-              f"B of inputs, one {S * H * 4} B output block reused), "
-              f"launches queued behind a sleep: kernel [{fmt(kern[n], 3)}]; "
-              f"plain [{fmt(plain[n], 1)}] per call")
+        print(f"timing {n} {job['what']} over {len(job['sets'])} input sets "
+              f"({job['in_bytes']} B of inputs), queued behind a sleep: "
+              f"kernel [{fmt(kern[n], 3)}]; plain [{fmt(plain[n], 1)}] per "
+              f"call")
         print(f"timing {n}: device time from the profiler "
               f"{'not measured (no device event)' if prof_k is None else f'{prof_k[1]:.3f} us over {prof_k[0]} launches'}"
               f"; the {'host enqueue' if host_ms > ms else 'device'} bounds "
               f"back-to-back launches (host {host_ms * 1e3:.3f} us vs device "
               f"{ms * 1e3:.3f} us)")
-        print(f"timing {n}: bound {bound * 1e3:.3f} us ({nbytes} B over "
-              f"3.35 TB/s; {nops} fp32 ops = {t_ops * 1e3:.3f} us); kernel at "
+        print(f"timing {n}: bound {bound * 1e3:.3f} us ({job['bytes']} B over "
+              f"3.35 TB/s = {t_bytes * 1e3:.3f} us; {job['ops']} fp32 ops "
+              f"over 33.5 T/s = {t_ops * 1e3:.3f} us); kernel at "
               f"{bound / ms:.1%} of the bound; no single PyTorch call "
-              f"computes this gated step, so there is no library yardstick")
+              f"computes this function, so there is no library yardstick")
         out[n] = {"ms": ms, "plain_ms": min(r[0] for r in plain[n]),
                   "bound_ms": bound,
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    w = out["fastgrnn_window"]["ms"]
+    print(f"timing fastgrnn_window: {W_BATCH / w * 1e3:,.0f} windows/s "
+          f"({W_BATCH * W_STEPS / w * 1e3:,.0f} window-steps/s) on one card")
     return out
 
 
@@ -947,20 +1316,32 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     max_err = kernel_vs_plain(torch, windows, dev)
     dense_err = dense_vs_plain(torch, np, dev)
+    lut_err = lut_vs_plain(torch, np, dev)
+    window_err = window_vs_plain(torch, np, dev)
     launches, eng, feeds, art, events = main_path(torch, np, dev)
     profiled_window(torch, eng, feeds)
     sw = eng.kernel.sw
     del eng
     single = per_stream(events, [f"s{i}" for i in range(SLOTS + EXTRA)])
     del events
+    from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
+    WindowScan.launches = 0             # count the window path's run only
+    k4_launches = window_path(torch, np, dev, art)
+    window_at_scale(torch, np, dev, art, feeds, single)
+    k3_launches = WindowScan.launches
+    if k3_launches != 2:
+        fail(f"window path launched K3 {k3_launches} times, want 2")
     k2 = fleet_path(torch, np, dev, art, feeds, single, mxu=True)
     fleet_path(torch, np, dev, art, feeds, single, mxu=False)
     del single
     failover(torch, np, dev, art, feeds)
-    t = timing(torch, sw)
+    t = timing(torch, sw, art)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"
     rows = [("q15_step", f"{src}:119", launches, max_err),
-            ("q15_step_dense", f"{src}:146", k2["launches"], dense_err)]
+            ("q15_step_dense", f"{src}:146", k2["launches"], dense_err),
+            ("fastgrnn_window", f"{src}:31", k3_launches, window_err),
+            ("lut_act", "src/repro/kernels/lut_act/kernel.py:25",
+             k4_launches, lut_err)]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,

@@ -1,1 +1,3 @@
-"""LUT activations, Q15 quantization and the scalar C-equivalent runtime."""
+"""LUT activations, Q15 quantization, the scalar C-equivalent runtime, the
+FP32 FastGRNN cell, warm-up characterization and the MCU latency and
+energy models."""

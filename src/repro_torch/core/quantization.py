@@ -60,6 +60,24 @@ class QuantizedParams:
     fp: dict[str, torch.Tensor]
     bits: int = 16
 
+    def dequantize(self) -> dict[str, torch.Tensor]:
+        """Float parameters: each quantized tensor as ``float32(q) *
+        scale`` (one float32 multiply, as the reference and
+        ``qstep.StepWeights.w`` compute it), plus the float leaves."""
+        out = {k: v.to(torch.float32)
+               * torch.tensor(self.scales[k], dtype=torch.float32)
+               for k, v in self.q.items()}
+        out.update(self.fp)
+        return out
+
+    def nbytes(self) -> int:
+        itemsize = 2 if self.bits == 16 else 1
+        return sum(v.numel() for v in self.q.values()) * itemsize
+
+    def nonzero(self) -> int:
+        return int(sum(int(torch.count_nonzero(v))
+                       for d in (self.q, self.fp) for v in d.values()))
+
     CANONICAL_ORDER = ("W", "U", "W1", "W2", "U1", "U2", "head_w")
 
     def tensor_order(self) -> tuple[str, ...]:

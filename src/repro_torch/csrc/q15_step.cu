@@ -31,12 +31,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fastgrnn_cell.cuh"
+
 namespace {
 
 constexpr int kMaxH = 64;
 constexpr int kMaxD = 16;
 constexpr int kMaxR = 32;
-constexpr int kLut = 256;
+constexpr int kLut = fastgrnn_cell::kLut;
 constexpr int kThreads = 256;
 
 // bits of the store-enable mask (activation storage, Table V)
@@ -66,18 +68,6 @@ struct StepParams {
   int store;               // kStore* bits
   float s_pre, s_z, s_ht, s_h;
 };
-
-// Nearest-bucket LUT over [-8, 8] (Appendix C): index (v + 8) * 16
-// truncated toward zero (NaN -> 0), clamped to [0, 255], then the
-// saturation overrides in the plain version's order.
-__device__ __forceinline__ float lut_eval(const float* t, float v) {
-  int idx = __float2int_rz(__fmul_rn(__fsub_rn(v, -8.0f), 16.0f));
-  idx = idx < 0 ? 0 : (idx > kLut - 1 ? kLut - 1 : idx);
-  float y = t[idx];
-  if (v >= 8.0f) y = t[kLut - 1];
-  if (v <= -8.0f) y = t[0];
-  return y;
-}
 
 // Q15 activation storage: round half to even of a correctly rounded
 // quotient, clip (NaN passes through, as numpy's clip and torch.clamp
@@ -181,17 +171,11 @@ q15_step_kernel(StepParams p) {
     }
     float pre = __fadd_rn(wx, uh);
     if (st_pre) pre = store_q15(pre, p.s_pre);
-    float z = lut_eval(sig, __fadd_rn(pre, bz[i]));
-    float ht = lut_eval(tnh, __fadd_rn(pre, bh[i]));
+    float z = fastgrnn_cell::lut_nearest(sig, __fadd_rn(pre, bz[i]));
+    float ht = fastgrnn_cell::lut_nearest(tnh, __fadd_rn(pre, bh[i]));
     if (st_z) z = store_q15(z, p.s_z);
     if (st_ht) ht = store_q15(ht, p.s_ht);
-    // (zeta * (1 - z) + nu) * ht + z * h, in this order
-    float t = __fsub_rn(1.0f, z);
-    t = __fmul_rn(p.zeta, t);
-    t = __fadd_rn(t, p.nu);
-    t = __fmul_rn(t, ht);
-    float u = __fmul_rn(z, h[i]);
-    float hn = __fadd_rn(t, u);
+    float hn = fastgrnn_cell::gate(z, ht, h[i], p.zeta, p.nu);
     if (st_h) hn = store_q15(hn, p.s_h);
     p.out[hoff + i] = hn;
   }

@@ -39,11 +39,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fastgrnn_cell.cuh"
+
 namespace {
 
 constexpr int kMaxH = 64;
 constexpr int kMaxD = 16;
-constexpr int kLut = 256;
+constexpr int kLut = fastgrnn_cell::kLut;
 constexpr int kThreads = 256;
 
 struct DenseParams {
@@ -60,18 +62,6 @@ struct DenseParams {
   const float* tanh_lut;   // (256,)
   float zeta, nu;
 };
-
-// Nearest-bucket LUT over [-8, 8] (Appendix C): index (v + 8) * 16
-// truncated toward zero (NaN -> 0), clamped to [0, 255], then the
-// saturation overrides in the plain version's order.
-__device__ __forceinline__ float lut_eval(const float* t, float v) {
-  int idx = __float2int_rz(__fmul_rn(__fsub_rn(v, -8.0f), 16.0f));
-  idx = idx < 0 ? 0 : (idx > kLut - 1 ? kLut - 1 : idx);
-  float y = t[idx];
-  if (v >= 8.0f) y = t[kLut - 1];
-  if (v <= -8.0f) y = t[0];
-  return y;
-}
 
 // kH = kD = 0: sizes from the parameters; otherwise fixed at compile time
 // (then kH % 4 == 0 and h / out are 16-byte aligned, checked by the
@@ -143,14 +133,9 @@ q15_step_dense_kernel(DenseParams p) {
       for (int j = 0; j < H; ++j)
         uh = __fadd_rn(uh, __fmul_rn(h[j], u[i * H + j]));
       const float pre = __fadd_rn(wx, uh);
-      const float z = lut_eval(sig, __fadd_rn(pre, bz[i]));
-      const float ht = lut_eval(tnh, __fadd_rn(pre, bh[i]));
-      // (zeta * (1 - z) + nu) * ht + z * h, in this order
-      float t = __fsub_rn(1.0f, z);
-      t = __fmul_rn(p.zeta, t);
-      t = __fadd_rn(t, p.nu);
-      t = __fmul_rn(t, ht);
-      hn[i] = __fadd_rn(t, __fmul_rn(z, h[i]));
+      const float z = fastgrnn_cell::lut_nearest(sig, __fadd_rn(pre, bz[i]));
+      const float ht = fastgrnn_cell::lut_nearest(tnh, __fadd_rn(pre, bh[i]));
+      hn[i] = fastgrnn_cell::gate(z, ht, h[i], p.zeta, p.nu);
     }
   }
 

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
 Each kernel is one source ``csrc/<name>.cu`` with a plain ``extern "C"``
-launcher.  It is compiled at first use, on the machine with the card, into
-a shared library under ``<package>/_build/`` (listed in ``.gitignore``),
-keyed by a hash of the source and the flags so an unchanged kernel is not
-rebuilt.  :func:`build_all` starts one nvcc per source at once, so the
-kernels build in parallel.  The flags pin the numerics: ``--fmad=false``
+launcher; device code shared between kernels lives in ``csrc/*.cuh``.  It
+is compiled at first use, on the machine with the card, into a shared
+library under ``<package>/_build/`` (listed in ``.gitignore``), keyed by a
+hash of the source, the headers and the flags so an unchanged kernel is
+not rebuilt.  :func:`build_all` starts one nvcc per source at once, so
+the kernels build in parallel.  The flags pin the numerics: ``--fmad=false``
 (no contraction of ``a*b+c`` into an FMA) and ``-prec-div=true``;
 ``--use_fast_math`` is never passed.  ``-Xptxas=-v`` makes the compiler
 report each kernel's registers, shared memory and spills.  Nothing here
@@ -55,10 +56,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the built library of kernel ``name`` lives (content-keyed)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    """Where the built library of kernel ``name`` lives, keyed by the
+    contents of its source, of every header in ``csrc/`` (a source may
+    include any of them) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc(name: str):
@@ -80,9 +85,15 @@ def _nvcc(name: str):
     return proc, tmp, log
 
 
-def build_all(names) -> dict[str, tuple[Path, float, str]]:
-    """Compile every kernel in ``names`` whose library is not built yet,
-    one nvcc per source, all started before any is waited on.  Returns
+def kernel_names() -> list[str]:
+    """Every kernel of the port: the stems of ``csrc/*.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names=None) -> dict[str, tuple[Path, float, str]]:
+    """Compile every kernel in ``names`` (default: :func:`kernel_names`)
+    whose library is not built yet, one nvcc per source, all started before
+    any is waited on.  Returns
     ``{name: (library path, seconds, compiler output)}``; a library that was
     built already takes 0.0 s and has no output.  Raises
     :class:`KernelBuildError` with the compiler's output if any build fails,
@@ -92,7 +103,7 @@ def build_all(names) -> dict[str, tuple[Path, float, str]]:
     errors = []
     t0 = time.perf_counter()
     try:
-        for name in names:
+        for name in kernel_names() if names is None else names:
             lib = library_path(name)
             if lib.exists():
                 out[name] = (lib, 0.0, "")

@@ -9,8 +9,14 @@
   ``_q15_step_kernel_mxu`` (``make_fastgrnn_step(mxu=True)``): the same
   step against pre-multiplied effective float32 W and U and without
   activation storage, bitwise equal to the plain ``qstep.step_dense``.
+* :class:`WindowScan` (``csrc/fastgrnn_window.cu``) replaces
+  ``_cell_kernel`` (``fastgrnn_window``): the fused FP32 scan over a whole
+  (T, B, d) window from h = 0, writing the final h and the (T, B, H)
+  trajectory, bitwise equal to the plain ``qstep.window_scan``.  It is
+  bound by fp32 instructions (no FMA) about as much as by its HBM bytes
+  (x in, the trajectory out); see the source.
 
-Both kernels are bound by HBM bytes: per stream-step they read x (12 B)
+Both step kernels are bound by HBM bytes: per stream-step they read x (12 B)
 and h (64 B) and the mask byte and write a fresh h (64 B), about 18.5 MB
 per step at S = 131,072, so about 5.5 us at 3.35 TB/s.  They hold the
 weights and both LUTs in shared memory, so these are never re-read from
@@ -33,6 +39,7 @@ from . import qstep
 
 KERNEL = "q15_step"
 DENSE_KERNEL = "q15_step_dense"
+WINDOW_KERNEL = "fastgrnn_window"
 
 # bits of the kernel's store-enable mask, in qstep.STORE_NAMES order
 _STORE_BITS = {"pre": 1, "z": 2, "h_tilde": 4, "h": 8}
@@ -52,6 +59,13 @@ _DENSE_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I,        # h x mask out S H D
                    _P]                                # stream
 
 
+_WINDOW_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I,   # x traj h T B H D
+                    _P, _P, _P, _P,               # w u b_z b_h (device)
+                    _P, _P, _P, _P,               # the same on the host
+                    _P, _P, _F, _F,               # luts zeta nu
+                    _P]                           # stream
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.q15_step_launch.argtypes = _ARGTYPES
     lib.q15_step_launch.restype = _I
@@ -67,6 +81,16 @@ def _bind_dense(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.q15_step_dense_fixed.restype = _I
     lib.q15_step_dense_error_string.argtypes = [_I]
     lib.q15_step_dense_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bind_window(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.fastgrnn_window_launch.argtypes = _WINDOW_ARGTYPES
+    lib.fastgrnn_window_launch.restype = _I
+    lib.fastgrnn_window_fixed.argtypes = [_I, _I, _P, _P]
+    lib.fastgrnn_window_fixed.restype = _I
+    lib.fastgrnn_window_error_string.argtypes = [_I]
+    lib.fastgrnn_window_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -202,3 +226,64 @@ def make_fastgrnn_step(sw: "qstep.StepWeights", *, device="cuda",
     weights dequantized on use, or with ``mxu=True`` the reference's dense
     layout (:class:`DenseStep`)."""
     return (DenseStep if mxu else FastGRNNStep)(sw, device)
+
+
+class WindowScan:
+    """The fused window scan ``scan(xs) -> (h, traj)`` for one float
+    parameter dict (numpy or tensor leaves): xs (T, B, d) float32 on this
+    scan's device -> final h (B, H) and trajectory (T, B, H), from h = 0.
+    ``launches`` counts kernel launches of every instance, and only those:
+    the CPU plain path does not count."""
+
+    launches = 0
+
+    def __init__(self, params: dict, device="cuda"):
+        self.device = resolve_device(device)
+        self._host = qstep.window_arrays(params, "cpu")
+        self._arrs = {k: v.to(self.device) if isinstance(v, torch.Tensor)
+                      else v for k, v in self._host.items()}
+        self.hidden_dim, self.input_dim = self._host["W"].shape
+        if self.device.type == "cuda":
+            self._lib = _bind_window(_build.load(WINDOW_KERNEL))
+
+    def plain(self, xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The plain PyTorch version on this scan's device (no launch)."""
+        return qstep.window_scan(self._arrs, xs)
+
+    def fixed_width(self, traj: torch.Tensor, h: torch.Tensor) -> bool:
+        """Whether a launch writing these tensors runs the kernel's
+        instantiation with the sizes fixed at compile time (the paper's
+        width)."""
+        return bool(self._lib.fastgrnn_window_fixed(
+            self.hidden_dim, self.input_dim, traj.data_ptr(), h.data_ptr()))
+
+    def __call__(self, xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if xs.device != self.device:
+            raise ValueError(f"xs is on {xs.device}, scan built for "
+                             f"{self.device}")
+        if xs.dtype != torch.float32:
+            raise TypeError(f"xs must be torch.float32, got {xs.dtype}")
+        if xs.dim() != 3 or xs.shape[2] != self.input_dim:
+            raise ValueError(f"xs must be (T, B, {self.input_dim}), got "
+                             f"{tuple(xs.shape)}")
+        if not xs.is_contiguous():
+            raise ValueError("xs must be contiguous")
+        if xs.device.type == "cpu":
+            return self.plain(xs)
+        T, B, _ = xs.shape
+        H = self.hidden_dim
+        traj = torch.empty((T, B, H), dtype=torch.float32, device=xs.device)
+        h = torch.empty((B, H), dtype=torch.float32, device=xs.device)
+        a, c = self._arrs, self._host
+        err = self._lib.fastgrnn_window_launch(
+            xs.data_ptr(), traj.data_ptr(), h.data_ptr(), T, B, H,
+            self.input_dim, a["W"].data_ptr(), a["U"].data_ptr(),
+            a["b_z"].data_ptr(), a["b_h"].data_ptr(), c["W"].data_ptr(),
+            c["U"].data_ptr(), c["b_z"].data_ptr(), c["b_h"].data_ptr(),
+            a["sig_lut"].data_ptr(), a["tanh_lut"].data_ptr(), a["zeta"],
+            a["nu"], torch.cuda.current_stream(self.device).cuda_stream)
+        if err != 0:
+            msg = self._lib.fastgrnn_window_error_string(err).decode()
+            raise RuntimeError(f"{WINDOW_KERNEL} launch failed ({err}): {msg}")
+        WindowScan.launches += 1
+        return h, traj

@@ -1,6 +1,15 @@
-"""``Q15StreamStep`` — the batched single-step path for multi-stream
-streaming inference (``serve/streaming.py``): one Q15 FastGRNN step for
-thousands of independent hidden states at once.
+"""Entry points of the FastGRNN cell kernels:
+
+* :func:`fastgrnn_window_kernel` — the fused FP32 full-window scan (the
+  evaluation batch path and the third execution path of the paper's
+  Table VI agreement);
+* ``Q15StreamStep`` — the batched single-step path for multi-stream
+  streaming inference (``serve/streaming.py``): one Q15 FastGRNN step for
+  thousands of independent hidden states at once.
+
+The window scan runs :func:`qstep.window_scan` on ``device="cpu"`` and the
+CUDA kernel ``csrc/fastgrnn_window.cu`` on ``"cuda"`` (the default), with
+no padding to the TPU's (8, 128) tiles.
 
 The device decides the path: ``device="cpu"`` runs the plain torch
 ``qstep.step_batched`` (bit-exact, what the tests use), ``device="cuda"``
@@ -21,7 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.obs.transfers import TransferLedger
 from . import qstep
-from .kernel import make_fastgrnn_step
+from .kernel import WindowScan, make_fastgrnn_step
 
 #: H100 SXM data-sheet peaks used by :meth:`Q15StreamStep.roofline`: HBM3
 #: bandwidth and the float32 rate of the CUDA cores (the step kernel runs
@@ -31,6 +40,19 @@ H100_FP32_FLOPS = 67e12
 
 
 _NP = {torch.float32: np.float32, torch.bool: np.bool_}
+
+
+def fastgrnn_window_kernel(params: dict, xs, *, device="cuda"
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xs: (T, B, d) -> (h_final (B, H), traj (T, B, H)) on ``device``: the
+    LUT-activated (nearest, as the deployed C engine) FP32 cell over a
+    whole window from h = 0, against the effective W and U of ``params``
+    (a float parameter dict, numpy or tensor leaves).  On ``cuda`` it
+    launches the kernel or raises; ``cpu`` runs the plain version."""
+    scan = WindowScan(params, device)
+    if not isinstance(xs, torch.Tensor):
+        xs = torch.from_numpy(np.ascontiguousarray(xs, np.float32))
+    return scan(xs.to(scan.device, torch.float32).contiguous())
 
 
 def _as_tensor(a, dtype) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 This is the **plain version** of the CUDA step kernels (``kernel.py``:
 ``csrc/q15_step.cu`` is :func:`step_batched`, ``csrc/q15_step_dense.cu``
-the dense layout :func:`step_dense`) and the port of the reference
+the dense layout :func:`step_dense`, ``csrc/fastgrnn_window.cu`` the
+full-window scan :func:`window_scan`) and the port of the reference
 ``repro.kernels.fastgrnn_cell.qstep``: one FastGRNN step for a whole batch
 of independent streams, written as the same scalar IEEE-754 float32 ops per
 stream row as the scalar ``core/qruntime.QRuntime.step`` — fixed ascending-j
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lut import make_lut, LUT_SIZE, INPUT_MIN, INPUT_MAX
-from repro_torch.core.quantization import QuantizedParams, Q15_MAX
+from repro_torch.core.quantization import QuantizedParams, Q15_MAX, as_f32_cpu
 
 _INV_BW = LUT_SIZE / (INPUT_MAX - INPUT_MIN)   # exact python float (16.0)
 
@@ -247,20 +248,25 @@ def step_batched(arrs: dict, sw: StepWeights, h: torch.Tensor,
     return store_batched(h_new, st["h"])
 
 
-def dense_weights(sw: StepWeights) -> tuple[torch.Tensor, torch.Tensor]:
-    """Effective W (H, d) and U (H, H) of the dense step layout: the
-    low-rank factors pre-multiplied (``W1 @ W2.T``, ``U1 @ U2.T``), with
-    numpy's ``@`` on the float32 arrays as the reference's
-    ``make_fastgrnn_step`` does, so the matrices are bitwise the
-    reference's.  Full rank: the
-    dequantized W and U themselves."""
-    w = {n: t.numpy() for n, t in sw.w.items()}
-    if sw.low_rank:
-        W, U = w["W1"] @ w["W2"].T, w["U1"] @ w["U2"].T
-    else:
-        W, U = w["W"], w["U"]
+def effective_weights(p: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Effective W (H, d) and U (H, H) on the CPU from float32 numpy leaves
+    (the reference's layout): the low-rank factors pre-multiplied with
+    numpy's ``@`` (``W1 @ W2.T``, ``U1 @ U2.T``), as the reference's
+    ``make_fastgrnn_step`` and ``ops.fastgrnn_window_kernel`` do, so the
+    matrices are bitwise the reference's; ``+ diag(alpha)`` where present.
+    Full rank: W and U themselves."""
+    W = p["W"] if "W" in p else p["W1"] @ p["W2"].T
+    U = p["U"] if "U" in p else p["U1"] @ p["U2"].T
+    if "alpha" in p:
+        U = U + np.diag(p["alpha"])
     return (torch.from_numpy(np.ascontiguousarray(W, np.float32)),
             torch.from_numpy(np.ascontiguousarray(U, np.float32)))
+
+
+def dense_weights(sw: StepWeights) -> tuple[torch.Tensor, torch.Tensor]:
+    """Effective W (H, d) and U (H, H) of the dense step layout, from the
+    dequantized weights (:func:`effective_weights`)."""
+    return effective_weights({n: t.numpy() for n, t in sw.w.items()})
 
 
 def dense_arrays(sw: StepWeights, device) -> dict:
@@ -280,11 +286,49 @@ def step_dense(arrs: dict, h: torch.Tensor, x: torch.Tensor,
     chains added at the end, the LUT gates, ``(zeta (1 - z) + nu) h~ +
     z h``, and rows whose mask is False keep h bit for bit.  Like the
     reference, this layout stores no activation in Q15 in any mode."""
+    return torch.where(mask[:, None], _dense_update(arrs, h, x), h)
+
+
+def _dense_update(arrs: dict, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The unmasked dense-layout step of every row."""
     pre = matvec_batched(arrs["W"], x) + matvec_batched(arrs["U"], h)
     z = lut_eval_batched(arrs["sig_lut"], pre + arrs["b_z"])
     h_tilde = lut_eval_batched(arrs["tanh_lut"], pre + arrs["b_h"])
-    h_new = (arrs["zeta"] * (1.0 - z) + arrs["nu"]) * h_tilde + z * h
-    return torch.where(mask[:, None], h_new, h)
+    return (arrs["zeta"] * (1.0 - z) + arrs["nu"]) * h_tilde + z * h
+
+
+def window_arrays(params: dict, device) -> dict:
+    """Every constant :func:`window_scan` needs, on ``device``, from a float
+    parameter dict (numpy or tensor leaves, the reference's layout): the
+    effective W (H, d) and U (H, H) (:func:`effective_weights`), the
+    biases, both LUTs and ``zeta``/``nu`` as float64 sigmoids rounded to
+    float32, as the reference's ``ops.fastgrnn_window_kernel`` builds
+    them.  The keys are :func:`dense_arrays`'s."""
+    dev = torch.device(device)
+    p = {k: as_f32_cpu(v).numpy() for k, v in params.items()}
+    W, U = effective_weights(p)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    return {"W": W.to(dev), "U": U.to(dev), "b_z": t(p["b_z"]),
+            "b_h": t(p["b_h"]), "sig_lut": make_lut("sigmoid").to(dev),
+            "tanh_lut": make_lut("tanh").to(dev),
+            "zeta": _sigmoid_f32(p["zeta"]), "nu": _sigmoid_f32(p["nu"])}
+
+
+def window_scan(arrs: dict, xs: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused window scan's plain version: T unmasked dense-layout steps
+    from h = +0.0 over time-major ``xs`` (T, B, d).  Returns the final h
+    (B, H) and the trajectory (T, B, H); every step is
+    :func:`step_dense`'s arithmetic with all rows active."""
+    T, B, _ = xs.shape
+    h = torch.zeros((B, arrs["b_z"].shape[0]), dtype=torch.float32,
+                    device=xs.device)
+    traj = torch.empty((T,) + tuple(h.shape), dtype=torch.float32,
+                       device=xs.device)
+    for t in range(T):
+        h = _dense_update(arrs, h, xs[t])
+        traj[t] = h
+    return h, traj
 
 
 def logits_batched(arrs: dict, sw: StepWeights, h: torch.Tensor) -> torch.Tensor:

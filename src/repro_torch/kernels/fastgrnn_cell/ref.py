@@ -1,9 +1,25 @@
-"""Scalar-loop oracle for the batched Q15 single step."""
+"""Oracles: the FP32 cell over a full window (for the window scan) and the
+scalar loop (for the batched Q15 single step)."""
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core import fastgrnn as fg
+from repro_torch.core.lut import lut_sigmoid, lut_tanh
 from repro_torch.core.qruntime import QRuntime, _matvec
+
+
+def fastgrnn_window_ref(params, xs, *, lut: bool = True,
+                        mode: str = "nearest"):
+    """xs: (T, B, d) -> final hidden (B, H) + trajectory (T, B, H): the
+    cell of ``core/fastgrnn.py`` with the LUT activations of
+    ``core/lut.py`` (``lut=False``: torch's sigmoid/tanh), on the device of
+    its inputs."""
+    kw = {}
+    if lut:
+        kw = {"sigma": lambda v: lut_sigmoid(v, mode),
+              "tanh": lambda v: lut_tanh(v, mode)}
+    return fg.run_sequence(params, xs, return_trajectory=True, **kw)
 
 
 def q15_step_batched_ref(qp, h, x, *, act_scales=None, naive_acts=False):

@@ -72,6 +72,38 @@ def test_quantize_all_zero_tensor_uses_unit_scale():
     assert not got.q["W"].any()
 
 
+
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("low_rank", [True, False])
+def test_dequantize_nbytes_nonzero_match_reference(low_rank, bits):
+    p = np_params(7, low_rank)
+    got = q.quantize_params(p, q.QuantConfig(bits=bits))
+    ref = jq.quantize_params(p, jq.QuantConfig(bits=bits))
+    deq, jdeq = got.dequantize(), ref.dequantize()
+    assert sorted(deq) == sorted(jdeq)
+    for k in jdeq:
+        # bitwise: one float32 multiply float32(q) * scale on both sides
+        assert deq[k].dtype == torch.float32
+        np.testing.assert_array_equal(as_bits(deq[k].numpy()),
+                                      as_bits(jdeq[k]))
+    assert got.nbytes() == ref.nbytes()
+    assert got.nonzero() == ref.nonzero()
+
+
+def test_dequantize_matches_step_weights_on_an_artifact():
+    """The window path's params come from ``art.qp.dequantize()``: bitwise
+    the reference's and the batched step's dequantized weights."""
+    from repro_torch.kernels.fastgrnn_cell.qstep import StepWeights
+    ref = _jax_artifact(True)
+    art = ModelArtifact.from_bytes(ref.to_bytes())
+    deq, jdeq = art.require_qp().dequantize(), ref.qp.dequantize()
+    sw = StepWeights.from_quantized(art.require_qp())
+    for k in ref.qp.q:
+        np.testing.assert_array_equal(as_bits(deq[k].numpy()),
+                                      as_bits(jdeq[k]))
+        np.testing.assert_array_equal(as_bits(deq[k].numpy()),
+                                      as_bits(sw.w[k].numpy()))
+
 # ---- the .fgar artifact ---------------------------------------------------
 
 def _jax_artifact(low_rank):

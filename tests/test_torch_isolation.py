@@ -60,6 +60,18 @@ blob = wire.encode_stream_state(fleet.shards[fleet.shard_of("s")]
 assert wire.decode_stream_state(blob).steps == 2
 fleet.crash_shard(fleet.shard_of("s"))
 assert len(fleet.drain()) == 1
+import torch
+from repro_torch.core import fastgrnn, warmup
+from repro_torch.kernels.fastgrnn_cell.ops import fastgrnn_window_kernel
+from repro_torch.kernels.lut_act.ops import lut_sigmoid, lut_tanh
+deq = qp.dequantize()
+xs = np.ones((8, 2, 3), np.float32)
+h, traj = fastgrnn_window_kernel(deq, xs, device="cpu")
+assert traj.shape == (8, 2, 16)
+lg = fastgrnn.forward_window(deq, torch.from_numpy(xs), sigma=lut_sigmoid,
+                             tanh=lut_tanh)
+preds = (traj @ deq["head_w"] + deq["head_b"]).argmax(-1).T.numpy()
+assert lg.shape == (2, 6) and warmup.characterize(preds).n_windows == 2
 assert not any(n == "jax" or n.startswith(("jax.", "repro."))
                or n == "repro" for n in sys.modules if sys.modules[n])
 print("ok", {len(port_modules())})
@@ -100,13 +112,18 @@ def test_default_device_raises_without_a_card():
     from repro_torch.kernels.fastgrnn_cell.qstep import StepWeights
     from repro_torch.serve.fleet import FleetEngine
     from repro_torch.serve.streaming import StreamingEngine
-    qp = quantize_params(weights.random_params(0), QuantConfig())
+    from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
+    from repro_torch.kernels.fastgrnn_cell.ops import fastgrnn_window_kernel
+    params = weights.random_params(0)
+    qp = quantize_params(params, QuantConfig())
     sw = StepWeights.from_quantized(qp)
+    xs = np.zeros((4, 2, 3), np.float32)
     for make in (lambda: Q15StreamStep(qp), lambda: StreamingEngine(qp),
                  lambda: make_fastgrnn_step(sw),
                  lambda: make_fastgrnn_step(sw, mxu=True),
                  lambda: Q15StreamStep(qp, mxu=True),
-                 lambda: FleetEngine(qp)):
+                 lambda: FleetEngine(qp), lambda: WindowScan(params),
+                 lambda: fastgrnn_window_kernel(params, xs)):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
 
@@ -164,13 +181,22 @@ def test_cuda_source_holds_the_numerics_contract():
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "-prec-div=true" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
-    sources = {p.name: p.read_text() for p in (PORT / "csrc").glob("*.cu")}
-    assert set(sources) == {"q15_step.cu", "q15_step_dense.cu"}
+    csrc = PORT / "csrc"
+    headers = {p.name: p.read_text() for p in csrc.glob("*.cuh")}
+    sources = {}
+    for p in csrc.glob("*.cu"):     # each source with the headers it includes
+        src = p.read_text()
+        sources[p.name] = src + "".join(
+            text for h, text in headers.items() if f'#include "{h}"' in src)
+    assert set(sources) == {"q15_step.cu", "q15_step_dense.cu",
+                            "fastgrnn_window.cu", "lut_act.cu"}
     for name, src in sources.items():
         needles = ["__float2int_rz", "__fmul_rn", "__fadd_rn", "__fsub_rn",
                    'extern "C"', "cudaGetLastError"]
         if name == "q15_step.cu":       # Q15 activation storage
             needles += ["__fdiv_rn", "rintf"]
+        if name == "lut_act.cu":        # lerp's (x - lo) / bw, bf16 output
+            needles += ["__fdiv_rn", "__float2bfloat16_rn"]
         for needle in needles:
             assert needle in src, (name, needle)
         for banned in ("roundf(", "__fmaf", "fmaf(", "fast_math", "__expf",
@@ -184,3 +210,16 @@ def test_hapt_loader_reads_nothing_outside_given_root(monkeypatch):
     a = hapt.load("test", n=3)
     np.testing.assert_array_equal(a.windows,
                                   hapt.generate_synthetic("test", n=3).windows)
+
+
+def test_library_key_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A header edit must not load a library built from the old header."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.kernel_names() == ["k"]
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != before

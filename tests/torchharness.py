@@ -27,6 +27,23 @@ def np_params(seed, low_rank=True, H=16, d=3, C=6):
     return p
 
 
+def np_cell_params(seed, *, low_rank=True, alpha=False, H=16, d=3, C=6):
+    """Float params at the paper's shapes with every leaf drawn (biases
+    and head bias too, N(0, 0.3) matrices) so the LUTs see their whole
+    range, and optionally the diagonal residual ``alpha``, with numpy."""
+    rng = np.random.default_rng(seed)
+    m = lambda *s: (0.3 * rng.standard_normal(s)).astype(np.float32)
+    p = ({"W1": m(H, 2), "W2": m(d, 2), "U1": m(H, 8), "U2": m(H, 8)}
+         if low_rank else {"W": m(H, d), "U": m(H, H)})
+    if alpha:
+        p["alpha"] = (0.1 + 0.05 * rng.standard_normal(H)).astype(np.float32)
+    p.update(b_z=(1 + 0.3 * rng.standard_normal(H)).astype(np.float32),
+             b_h=(0.3 * rng.standard_normal(H)).astype(np.float32),
+             zeta=np.float32(1.0), nu=np.float32(-4.0), head_w=m(H, C),
+             head_b=(0.1 * rng.standard_normal(C)).astype(np.float32))
+    return p
+
+
 def fold_log(events, log=None) -> dict:
     """Fold per-stream or columnar events of either package into
     ``{stream_id: [(kind, step, window_step, prediction, logits bytes,
