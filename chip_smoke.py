@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
    FP32 cell and classifier head run float32 matmuls).
 2. build every kernel (``src/repro_torch/csrc/``: ``q15_step.cu`` K1,
    ``q15_step_dense.cu`` K2, ``fastgrnn_window.cu`` K3, ``lut_act.cu``
-   K4) with nvcc, one process per source, started together.
+   K4, ``q15_matmul.cu`` K5) with nvcc, one process per source, started
+   together.
 3. K1 vs plain on the card: S = 131,072 streams at paper width, low- and
    full-rank, deployed / calibrated / naive activation storage, about a
    third of the rows masked, 2 % of them driven into LUT saturation, 128
@@ -29,7 +30,16 @@ Phases (any failure exits non-zero; nothing is caught):
    and K3 vs ``qstep.window_scan`` bitwise on h and the whole trajectory
    at B = 131,072 windows x T = 128 (low and full rank, the plain scan on
    the card against the CPU's on 4,096 rows), its runtime-width code at
-   H = 12, d = 5.
+   H = 12, d = 5.  Then K5 vs ``kernels.q15_matmul.kernel.plain`` for
+   int16 and int8 weights at the LM head's shape (8 x 1536 x 151,936),
+   on every shape of the reference's ``tests/test_kernels.py`` and on
+   (3, 1000, 1001) for the tails: within 1e-5 x max|plain| of the plain
+   version and within 2e-2 of the float32 oracle ``q15_matmul_ref``; its
+   bfloat16 output bitwise equal to its float32 output rounded to
+   bfloat16, and within 1e-5 x max|plain| plus one bfloat16 ulp of the
+   plain version's bfloat16 output (a float32 sum in another order may
+   round to the neighbouring bfloat16); leading dims (2, 5, K) through
+   ``ops.q15_matmul``.
 5. the single-engine main path: ``StreamingEngine.from_artifact`` on
    ``cuda`` with 131,072 slots over an artifact (seeded PTQ at
    ``fastgrnn_har`` width, round-tripped through ``.fgar``); 131,072 +
@@ -74,6 +84,27 @@ Phases (any failure exits non-zero; nothing is caught):
     sleep, after warm-up, over input sets larger than L2; the profiler's
     device time and the host's enqueue cost beside them; each kernel's
     bound (bytes over 3.35 TB/s or fp32 instructions over 33.5 T/s).
+    K5 at the LM head's shape, int16 and int8 weights (two input sets of
+    467 MB), with ``torch.mm`` of the bfloat16 x against the same weights
+    converted to bfloat16 beforehand as the library yardstick of its bytes
+    (not the same function: no integer weights, no scale).
+12. the LM serving path at full Qwen2-1.5B width (bfloat16 weights drawn
+    from a CUDA generator seeded 0): ``quantize_tree`` on the card bitwise
+    equal to the CPU's (int16 and int8) on the embedding table, layer 0's
+    ``attn.q.w`` and ``mlp.w_out.w``; ``serve.engine.Engine`` on ``cuda``
+    with 8 slots, ``max_len`` 512 and ``quant_bits`` 16 serving 24
+    requests from seed 0 (prompts of 16-128 tokens, ``max_new`` 8-64):
+    every request completes with exactly its budget of tokens, each in
+    [0, vocab); K5 launches equal prefills + decode ticks; every head
+    call's K5 output is held against the plain version on the same input
+    (1e-5 x max|plain|, argmax equal wherever the plain logits' top-2
+    margin exceeds twice the measured difference); tokens/s, prefill and
+    decode-tick times and peak device memory are printed.  Then the same
+    weights in float32 (TF32 off): a 4-slot cache, slots admitted at 32
+    and 57 prompt tokens, 16 ``decode_step_slotted`` ticks with one slot
+    inactive for the middle 4: the decode logits within 1e-3 of
+    ``forward`` on each whole sequence, the inactive and empty slots'
+    cache rows and ``pos`` bitwise unchanged.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -116,11 +147,11 @@ PROFILE_WARM = 10         # untraced ticks before the profiled window
 PROFILE_TICKS = 20        # ticks in the profiled steady window
 TIMING_SETS = 8           # input sets cycled by the timing phase (> L2)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# fp32 add or multiply instructions per second outside the tensor cores:
-# the data sheet's 67 TFLOP/s counts an FMA as two operations, and these
-# kernels are built without FMA (--fmad=false), so each add and each
-# multiply is one instruction at half that rate (132 SMs x 128 lanes x
-# ~1.98 GHz)
+# fp32 instructions per second outside the tensor cores: the data sheet's
+# 67 TFLOP/s counts an FMA as two operations, so one instruction (an FMA,
+# an add or a multiply) issues at half that rate (132 SMs x 128 lanes x
+# ~1.98 GHz).  The FastGRNN kernels' functions round between each multiply
+# and add, so each is an instruction of its own there.
 FP32_OPS_PER_S = 67e12 / 2
 W_BATCH = 131_072         # window scan: windows per launch ...
 W_STEPS = 128             # ... of this many samples (one paper window)
@@ -131,6 +162,17 @@ TABLE6_SCALAR = 32        # Table VI: windows re-run by the scalar QRuntime
 WARMUP_WINDOWS = 100      # Sec. VI-A: windows characterized (paper: 100)
 MIN_K3_AGREEMENT = 0.999  # K3 windows whose prediction equals the K1 path's
 MIN_FP32_AGREEMENT = 0.97  # FP32 + K4 LUT path vs the K1 path (reference)
+LM_ARCH = "qwen2-1.5b"    # the LM path's model, at full width
+HEAD_K, HEAD_N = 1536, 151_936  # its (d_model, vocab) integer head
+LM_SLOTS = 8              # engine slots (the decode head's M)
+LM_MAX_LEN = 512
+LM_REQUESTS = 24          # three times the slots: admission, recycling, spills
+LM_PROMPT = (16, 128)     # prompt tokens, inclusive range
+LM_NEW = (8, 64)          # max_new, inclusive range
+K5_REL = 1e-5             # K5 vs plain, relative to max |plain| (sum order)
+K5_REF_REL = 2e-2         # K5 vs the float32 oracle (the reference's bound)
+F32_DECODE_ATOL = 1e-3    # f32 slotted decode vs forward at full width
+LM_PROFILE_TICKS = 10     # decode ticks in the LM path's profiled window
 
 
 def fail(msg: str) -> None:
@@ -184,7 +226,8 @@ def environment(torch) -> str:
     return card
 
 
-KERNELS = ("q15_step", "q15_step_dense", "fastgrnn_window", "lut_act")
+KERNELS = ("q15_step", "q15_step_dense", "fastgrnn_window", "lut_act",
+           "q15_matmul")
 
 
 def build() -> None:
@@ -462,6 +505,84 @@ def window_vs_plain(torch, np, dev) -> float:
     print(f"K3==window_scan bitwise at H=12, d=5 (runtime-width code), "
           f"{CPU_ROWS} windows x T={W_STEPS}")
     return max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (cont.): K5 (quantized matmul) vs plain
+# ---------------------------------------------------------------------------
+
+def k5_error(torch, got, x, wq, scale, what: str) -> float:
+    """Hold one float32 K5 output against the plain version and the
+    float32 oracle on the same inputs; returns max |K5 - plain|."""
+    from repro_torch.kernels.q15_matmul.kernel import plain
+    from repro_torch.kernels.q15_matmul.ref import q15_matmul_ref
+    want = plain(x, wq, scale)
+    ref = q15_matmul_ref(x, wq, scale)
+    err = float((got - want).abs().max())
+    lim = K5_REL * float(want.abs().max())
+    if not err <= lim:
+        fail(f"K5 != plain ({what}): max |diff| {err:.3e} > {lim:.3e}")
+    rel = float((got - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
+    if not rel < K5_REF_REL:
+        fail(f"K5 vs q15_matmul_ref ({what}): relative error {rel:.3e}")
+    return err
+
+
+def q15_vs_plain(torch, np, dev) -> None:
+    """K5 against its plain version and the oracle at the LM head's shape
+    and the reference test's shapes, int16 and int8; its bfloat16 output;
+    leading dims through ``ops.q15_matmul``.  (The kernels line reports
+    the LM path's own largest |K5 - plain|.)"""
+    from repro_torch.kernels.q15_matmul import ops
+    from repro_torch.kernels.q15_matmul.kernel import Q15Matmul, plain
+    mm = Q15Matmul()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    scale = ops.as_scale(0.0021, dev)
+    head_err = 0.0
+    shapes = [(LM_SLOTS, HEAD_K, HEAD_N), (1, HEAD_K, HEAD_N), (8, 32, 16),
+              (64, 96, 130), (200, 256, 128), (1, 128, 256),
+              (3, 1000, 1001)]
+    for dtype, hi in ((torch.int16, 30000), (torch.int8, 120)):
+        for m, k, n in shapes:
+            x = torch.randn(m, k, generator=g, device=dev)
+            wq = torch.randint(-hi, hi, (k, n), generator=g,
+                               device=dev).to(dtype)
+            what = f"{str(dtype)[6:]} {m}x{k}x{n}"
+            got = mm(x, wq, scale)
+            err = k5_error(torch, got, x, wq, scale, what)
+            if (k, n) == (HEAD_K, HEAD_N):
+                head_err = max(head_err, err)
+            bf = mm(x, wq, scale, out_dtype=torch.bfloat16)
+            if not torch.equal(bf.view(torch.int16),
+                               got.to(torch.bfloat16).view(torch.int16)):
+                fail(f"K5 bfloat16 output != its float32 output rounded "
+                     f"({what})")
+            # the float32 bound plus one bfloat16 rounding step of plain's
+            pb = plain(x, wq, scale, out_dtype=torch.bfloat16).float()
+            ulp = torch.ldexp(torch.ones_like(pb), torch.frexp(pb)[1] - 8)
+            lim = K5_REL * float(plain(x, wq, scale).abs().max()) + ulp
+            if not bool(((bf.float() - pb).abs() <= lim).all()):
+                fail(f"K5 bfloat16 output off the plain version's by more "
+                     f"than {K5_REL} x max|plain| + one bfloat16 ulp "
+                     f"({what})")
+        x = torch.randn(2, 5, 64, generator=g, device=dev)
+        wq = torch.randint(-hi, hi, (64, 32), generator=g,
+                           device=dev).to(dtype)
+        out = ops.q15_matmul(x, wq, 0.0021)
+        if out.shape != (2, 5, 32):
+            fail(f"ops.q15_matmul lead dims: shape {tuple(out.shape)}")
+        k5_error(torch, out.reshape(10, 32), x.reshape(10, 64), wq, scale,
+                 f"{str(dtype)[6:]} (2, 5, 64) through ops")
+    torch.cuda.synchronize()
+    print(f"K5 vs plain: int16 and int8 on {len(shapes)} shapes (the head's "
+          f"{LM_SLOTS}x{HEAD_K}x{HEAD_N} and 1x{HEAD_K}x{HEAD_N}, the "
+          f"reference test's four, 3x1000x1001) within {K5_REL} x max|plain| "
+          f"(largest |diff| at the head {head_err:.3e}) and {K5_REF_REL} of "
+          f"q15_matmul_ref; bfloat16 output = float32 output rounded, within "
+          f"that bound + one bfloat16 ulp of plain's; lead dims (2, 5, 64) "
+          f"through ops; in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1180,7 +1301,7 @@ def queued(torch, fn, sets, n: int, warm: int, cycles_per_ms: float):
 def timing_jobs(torch, sw, art) -> dict:
     """Every kernel at its main path's shapes, with its plain version, its
     input sets (together past the 50 MB L2), its call counts (kernel n,
-    warm-up; plain n, warm-up) and the bytes and fp32 operations its
+    warm-up; plain n, warm-up) and the bytes and fp32 instructions its
     function needs (each input read once, each output written once)."""
     from repro_torch.kernels.fastgrnn_cell.kernel import (WindowScan,
                                                           make_fastgrnn_step)
@@ -1223,6 +1344,31 @@ def timing_jobs(torch, sw, art) -> dict:
             counts=(50, 5, 10, 2),
             bytes=2 * n * torch.finfo(dtype).bits // 8, ops=4 * n,
             what=f"tanh nearest over {n} {str(dtype)[6:]} values")
+    # K5 at the LM head's shape; two weight sets of 467 MB (int16) pass L2
+    from repro_torch.kernels.q15_matmul.kernel import Q15Matmul, plain
+    mm = Q15Matmul()
+    m, k, n = LM_SLOTS, HEAD_K, HEAD_N
+    scale = torch.tensor(0.0021, device=dev)
+    for name, dtype, hi in (("q15_matmul", torch.int16, 30000),
+                            ("q15_matmul int8", torch.int8, 120)):
+        msets = [(torch.randn(m, k, generator=g, device=dev),
+                  torch.randint(-hi, hi, (k, n), generator=g,
+                                device=dev).to(dtype), scale)
+                 for _ in range(2)]
+        # the yardstick: torch.mm of bf16 x against the same weights in
+        # bf16 (2 bytes a weight), converted once beforehand
+        bsets = [(x.to(torch.bfloat16), w.to(torch.bfloat16))
+                 for x, w, _ in msets]
+        size = torch.iinfo(dtype).bits // 8
+        jobs[name] = dict(
+            kernel=mm, plain=plain, sets=msets,
+            counts=(100, 10, 10, 2), library=torch.mm, library_sets=bsets,
+            bytes=4 * m * k + size * k * n + 4 + 4 * m * n,
+            # one FMA per product (a product of two bfloat16 values is
+            # exact in float32, so a fused add rounds as the separate one
+            # does) and one multiply by the scale per output
+            ops=m * k * n + m * n,
+            what=f"M={m} x K={k} x N={n}, {str(dtype)[6:]} weights")
     for job in jobs.values():
         job["in_bytes"] = sum(t.numel() * t.element_size()
                               for st in job["sets"] for t in st)
@@ -1235,7 +1381,7 @@ def timing(torch, sw, art) -> dict:
     calls queued behind a sleep (CUDA events) and the host's enqueue cost
     (:func:`queued`), each kernel's device time also read from a
     torch.profiler trace, and its bound: the larger of its bytes over
-    3.35 TB/s and its fp32 operations over the FMA-free instruction rate.
+    3.35 TB/s and its fp32 instructions over their issue rate.
     Rounds run every kernel, then every plain version, and then both in
     the reverse order."""
     from torch.profiler import ProfilerActivity, profile
@@ -1244,12 +1390,17 @@ def timing(torch, sw, art) -> dict:
     cycles_per_ms = sleep_rate(torch)
     kern = {n: [] for n in jobs}
     plain = {n: [] for n in jobs}
+    lib = {n: [] for n in jobs if "library" in jobs[n]}
     order = list(jobs)
     for names in (order, order[::-1]):
         for n in names:
             nk, wk, _, _ = jobs[n]["counts"]
             kern[n].append(queued(torch, jobs[n]["kernel"], jobs[n]["sets"],
                                   nk, wk, cycles_per_ms))
+            if n in lib:
+                lib[n].append(queued(torch, jobs[n]["library"],
+                                     jobs[n]["library_sets"], nk, wk,
+                                     cycles_per_ms))
         for n in names:
             _, _, npl, wpl = jobs[n]["counts"]
             plain[n].append(queued(torch, jobs[n]["plain"], jobs[n]["sets"],
@@ -1282,18 +1433,310 @@ def timing(torch, sw, art) -> dict:
               f"; the {'host enqueue' if host_ms > ms else 'device'} bounds "
               f"back-to-back launches (host {host_ms * 1e3:.3f} us vs device "
               f"{ms * 1e3:.3f} us)")
+        lib_ms = min(r[0] for r in lib[n]) if n in lib else None
         print(f"timing {n}: bound {bound * 1e3:.3f} us ({job['bytes']} B over "
-              f"3.35 TB/s = {t_bytes * 1e3:.3f} us; {job['ops']} fp32 ops "
-              f"over 33.5 T/s = {t_ops * 1e3:.3f} us); kernel at "
-              f"{bound / ms:.1%} of the bound; no single PyTorch call "
-              f"computes this function, so there is no library yardstick")
+              f"3.35 TB/s = {t_bytes * 1e3:.3f} us; {job['ops']} fp32 "
+              f"instructions over 33.5 T/s = {t_ops * 1e3:.3f} us); kernel at "
+              f"{bound / ms:.1%} of the bound; " + (
+                  "no single PyTorch call computes this function, so there "
+                  "is no library yardstick" if lib_ms is None else
+                  f"library yardstick torch.mm of bfloat16 x against the "
+                  f"weights in bfloat16 (the bytes of int16, not the same "
+                  f"function) [{fmt(lib[n], 3)}] per call"))
         out[n] = {"ms": ms, "plain_ms": min(r[0] for r in plain[n]),
-                  "bound_ms": bound,
+                  "bound_ms": bound, "library_ms": lib_ms,
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     w = out["fastgrnn_window"]["ms"]
     print(f"timing fastgrnn_window: {W_BATCH / w * 1e3:,.0f} windows/s "
           f"({W_BATCH * W_STEPS / w * 1e3:,.0f} window-steps/s) on one card")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the LM serving path at full Qwen2-1.5B width
+# ---------------------------------------------------------------------------
+
+def quantize_on_card(torch, params) -> None:
+    """``quantize_tree`` on the card against the CPU, bitwise (integers
+    and scales, int16 and int8), on three full-size leaves of the model."""
+    from repro_torch.compress.tree import quantize_tree
+    from repro_torch.pytree import tree_map
+    blocks = params["blocks"]
+    leaves = {"embed.table": params["embed"]["table"],
+              "attn.q.w[0]": blocks["attn"]["q"]["w"][0],
+              "mlp.w_out.w[0]": blocks["mlp"]["w_out"]["w"][0]}
+    host = tree_map(lambda t: t.cpu(), leaves)
+    t0 = time.perf_counter()
+    for bits in (16, 8):
+        q_dev, s_dev = quantize_tree(leaves, bits)
+        q_cpu, s_cpu = quantize_tree(host, bits)
+        for name in leaves:
+            got = q_dev[name].cpu()
+            if not torch.equal(got, q_cpu[name]):
+                n = int((got != q_cpu[name]).sum())
+                fail(f"quantize_tree int{bits} {name}: {n} integers differ "
+                     "between the card and the CPU")
+            if not bits_equal(s_dev[name].cpu(), s_cpu[name]):
+                fail(f"quantize_tree int{bits} {name}: scale "
+                     f"{float(s_dev[name])!r} on the card, "
+                     f"{float(s_cpu[name])!r} on the CPU")
+    print("quantize_tree card == CPU bitwise (int16 and int8 integers and "
+          "scales): " + ", ".join(f"{k} {tuple(v.shape)}"
+                                  for k, v in leaves.items())
+          + f" in {time.perf_counter() - t0:.1f} s")
+
+
+def lm_requests(np, vocab: int) -> list:
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for _ in range(LM_REQUESTS):
+        n = int(rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1))
+        new = int(rng.integers(LM_NEW[0], LM_NEW[1] + 1))
+        reqs.append((rng.integers(0, vocab, n).astype(np.int32), new))
+    return reqs
+
+
+def lm_path(torch, np, dev, card: str) -> dict:
+    """The LM ``Engine`` at full Qwen2-1.5B width through its Q15 head (K5),
+    every head call checked against the plain version; then the same
+    weights in float32 through the slotted decode (see
+    :func:`lm_decode_continuity`)."""
+    from repro_torch import configs
+    from repro_torch.kernels.q15_matmul.kernel import Q15Matmul, plain
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MetricsRegistry, Observability, Tracer
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = configs.get(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    by_dtype = {}
+    for t in tree_leaves(params):
+        by_dtype[str(t.dtype)[6:]] = by_dtype.get(str(t.dtype)[6:], 0) \
+            + t.numel()
+    print(f"LM: {cfg.name} at full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, tied embeddings, QKV bias, param_dtype "
+          f"{cfg.param_dtype}), {sum(by_dtype.values()):,} parameters ("
+          + ", ".join(f"{n:,} {k}" for k, n in by_dtype.items())
+          + f"; the full-rank dense weights come out float32 as in the "
+          f"reference's init) from a CUDA generator seeded {SEED} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    quantize_on_card(torch, params)
+
+    # the engine's own spans time the run: lm.prefill and lm.decode end in
+    # the sampled tokens' copy to the host, so each holds its device work
+    obs = Observability(tracer=Tracer(), metrics=MetricsRegistry())
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, ServeConfig(max_len=LM_MAX_LEN,
+                                          max_slots=LM_SLOTS, quant_bits=16),
+                 obs=obs, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    wq, scale = eng._head_wq, eng._head_scale
+    if tuple(wq.shape) != (HEAD_K, HEAD_N) or wq.dtype != torch.int16:
+        fail(f"engine head {tuple(wq.shape)} {wq.dtype}, want "
+             f"({HEAD_K}, {HEAD_N}) int16")
+    heads = []                      # (K5 input, K5 output) of every call
+    head = eng._head_logits
+
+    def recorded_head(hidden):
+        out = head(hidden)
+        heads.append((hidden[:, -1, :].float(), out))
+        return out
+    eng._head_logits = recorded_head
+    reqs = lm_requests(np, cfg.vocab_size)
+    Q15Matmul.launches = 0              # count the LM path's run only
+    rids = [eng.submit(toks, new) for toks, new in reqs]
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Q15Matmul.launches
+    st = eng.stats()
+    spans = obs.tracer.phase_stats()
+    for rid, (toks, new) in zip(rids, reqs):
+        out = eng.result(rid)
+        if out.shape != (new,) or out.min() < 0 or out.max() >= cfg.vocab_size:
+            fail(f"request {rid}: {out.shape[0]} tokens in "
+                 f"[{out.min()}, {out.max()}], want {new} in "
+                 f"[0, {cfg.vocab_size})")
+    if st["prefills"] != LM_REQUESTS or st["tokens_generated"] != sum(
+            new for _, new in reqs):
+        fail(f"engine stats {st}")
+    if launches != st["prefills"] + st["decode_ticks"] or len(heads) != launches:
+        fail(f"K5 launches {launches}, head calls {len(heads)}, prefills + "
+             f"decode ticks {st['prefills'] + st['decode_ticks']}")
+    if (spans["lm.prefill"]["count"], spans["lm.decode"]["count"]) != (
+            st["prefills"], st["decode_ticks"]):
+        fail(f"engine spans {spans} against stats {st}")
+
+    max_err, close, rows = 0.0, 0, 0
+    for x, out in heads:
+        want = plain(x, wq, scale)
+        diff = (out - want).abs().amax(dim=1)
+        lim = K5_REL * float(want.abs().max())
+        if not float(diff.max()) <= lim:
+            fail(f"LM head: K5 vs plain max |diff| {float(diff.max()):.3e} "
+                 f"> {lim:.3e}")
+        top2 = want.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * diff
+        if not torch.equal(out.argmax(1)[clear], want.argmax(1)[clear]):
+            fail("LM head: K5's argmax differs from the plain version's on "
+                 "a row whose top-2 margin exceeds twice the difference")
+        max_err = max(max_err, float(diff.max()))
+        close += int((~clear).sum())
+        rows += x.shape[0]
+    peak = torch.cuda.max_memory_allocated()
+    sch = st["scheduler"]
+    tokens = st["tokens_generated"]
+    pre, dec, tick = (spans[n] for n in ("lm.prefill", "lm.decode",
+                                         "lm.tick"))
+    print(f"LM path: {LM_REQUESTS} requests (prompts "
+          f"{sum(len(t) for t, _ in reqs)} tokens, budgets "
+          f"{tokens} tokens) over {LM_SLOTS} slots, max_len {LM_MAX_LEN}, "
+          f"quant_bits 16: {st['prefills']} prefills + {st['decode_ticks']} "
+          f"decode ticks, {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:,.1f} tokens/s; spans lm.prefill p50 "
+          f"{pre['p50_us'] / 1e3:.3f} ms ({pre['count']}), lm.decode p50 "
+          f"{dec['p50_us'] / 1e3:.3f} ms / p99 {dec['p99_us'] / 1e3:.3f} ms "
+          f"({dec['count']}), lm.tick p50 {tick['p50_us'] / 1e3:.3f} ms / "
+          f"p99 {tick['p99_us'] / 1e3:.3f} ms ({tick['count']}); scheduler "
+          f"admissions {sch['admissions']}, recycles {sch['recycles']}, "
+          f"spills {sch['spills']}, peak active {sch['peak_active']}; "
+          f"engine set-up (quantize, dequantize, head layout) {setup:.1f} s; "
+          f"peak device memory {peak:,} B ({peak / 2**30:.2f} GiB); card "
+          f"{card}")
+    print(f"LM path: K5 launched {launches} times = prefills + decode "
+          f"ticks; every head output within {K5_REL} x max|plain| of the "
+          f"plain version (largest |diff| {max_err:.3e}), argmax equal on "
+          f"every row whose top-2 margin exceeds twice its difference; "
+          f"{close} of {rows} rows fell under that margin")
+    eng._head_logits = head
+    lm_profiled_ticks(torch, np, eng, cfg.vocab_size)
+    del eng, heads
+    lm_decode_continuity(torch, np, dev, cfg, params)
+    return {"launches": launches, "max_abs_err": max_err}
+
+
+def lm_profiled_ticks(torch, np, eng, vocab: int) -> None:
+    """A profiled steady window of the engine: 8 requests with the longest
+    prompts and budgets fill every slot, three ticks run untraced, then
+    LM_PROFILE_TICKS decode ticks (nothing admitted or released) run under
+    torch.profiler (host and device): the device's busy share of the host
+    wall time (an upper estimate of the idle share, as in phase 6), K5's
+    device time per launch and the device time by kernel.  The requests
+    are cancelled afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 2)
+    rids = [eng.submit(rng.integers(0, vocab, LM_PROMPT[1]).astype(np.int32),
+                       LM_NEW[1]) for _ in range(LM_SLOTS)]
+    for _ in range(3):
+        eng.tick()
+    torch.cuda.synchronize()
+    ticks = eng.stats()["decode_ticks"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_TICKS):
+            eng.tick()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    if eng.stats()["decode_ticks"] - ticks != LM_PROFILE_TICKS:
+        fail("the LM profiled window was not all decode ticks")
+    for rid in rids:
+        eng.cancel(rid)
+    evs = device_events(prof)
+    if not evs:
+        print("LM profiled window: the trace holds no device event, so the "
+              "device busy share is not measured")
+        return
+    busy = busy_us(evs)
+    by_name = {}
+    for e in evs:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    k5 = kernel_device_us(prof, "q15_matmul_kernel")
+    print(f"LM profiled window ({LM_PROFILE_TICKS} decode ticks, "
+          f"{LM_SLOTS} active slots): host wall {wall_us:.1f} us "
+          f"({wall_us / LM_PROFILE_TICKS:.1f} us per tick), device busy "
+          f"{busy:.1f} us = {busy / wall_us:.2%}, idle "
+          f"{1 - busy / wall_us:.2%}; {len(evs)} device events "
+          f"({len(evs) / LM_PROFILE_TICKS:.0f} per tick); q15_matmul_kernel "
+          f"{k5[0] if k5 else 0} launches x "
+          f"{k5[1] if k5 else float('nan'):.3f} us device time")
+    print("LM profiled window device time by event (count, total us): " +
+          "; ".join(f"{k[:60]} {n} {t:.1f}" for k, (n, t) in
+                    sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]))
+
+
+def lm_decode_continuity(torch, np, dev, cfg, params) -> None:
+    """The full-width weights in float32 (TF32 off): a 4-slot cache, slots
+    0 and 2 admitted at 32 and 57 prompt tokens, 16 slotted decode ticks
+    with slot 2 inactive for the middle 4.  Each decode logit row must be
+    within F32_DECODE_ATOL of ``forward`` on the whole sequence, and the
+    inactive and empty slots' cache rows and ``pos`` must stay bitwise."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_map
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    lens, steps, idle, slots = (32, 57), 16, range(6, 10), (0, 2)
+    rng = np.random.default_rng(SEED + 1)
+    seqs = [rng.integers(0, cfg.vocab_size, n + steps) for n in lens]
+    cache = T.init_slot_cache(cfg32, 4, 128, dtype=torch.float32, device=dev)
+    for slot, seq, n in zip(slots, seqs, lens):
+        _, cache = T.prefill_into_slot(
+            cfg32, p32, cache, {"tokens": torch.as_tensor(seq[None, :n],
+                                                          device=dev)}, slot)
+    fed, got = [0, 0], [[], []]
+    for t in range(steps):
+        active = [True, False, t not in idle, False]
+        toks = np.zeros((4, 1), np.int64)
+        for j, slot in enumerate(slots):
+            if active[slot]:
+                toks[slot, 0] = seqs[j][lens[j] + fed[j]]
+        keep = {s: (cache["k"][:, s].clone(), cache["v"][:, s].clone(),
+                    cache["pos"][s].clone())
+                for s in range(4) if not active[s]}
+        logits, cache = T.decode_step_slotted(
+            cfg32, p32, cache, torch.as_tensor(toks, device=dev),
+            torch.as_tensor(active, device=dev))
+        for s, (k, v, pos) in keep.items():
+            if not (bits_equal(cache["k"][:, s], k)
+                    and bits_equal(cache["v"][:, s], v)
+                    and torch.equal(cache["pos"][s], pos)):
+                fail(f"f32 slotted decode: inactive slot {s} changed at "
+                     f"tick {t}")
+        for j, slot in enumerate(slots):
+            if active[slot]:
+                got[j].append(logits[slot, 0])
+                fed[j] += 1
+    err = 0.0
+    for j in range(2):
+        n = lens[j] + fed[j]
+        full, _, _ = T.forward(cfg32, p32, {"tokens": torch.as_tensor(
+            seqs[j][None, :n], device=dev)})
+        e = float((torch.stack(got[j]) - full[0, lens[j]:n]).abs().max())
+        if not e <= F32_DECODE_ATOL:
+            fail(f"f32 slotted decode vs forward (slot {slots[j]}): max "
+                 f"|diff| {e:.3e} > {F32_DECODE_ATOL}")
+        err = max(err, e)
+    torch.cuda.synchronize()
+    print(f"LM f32 slotted decode at full width: slots {slots} admitted at "
+          f"{lens} prompt tokens in a 4-slot cache, {steps} ticks with slot "
+          f"2 inactive for ticks {idle.start}-{idle.stop - 1}: max |decode - "
+          f"forward| {err:.3e} <= {F32_DECODE_ATOL} over {fed[0] + fed[1]} "
+          f"logit rows of {cfg.vocab_size}; the inactive and empty slots' "
+          f"cache rows and pos bitwise unchanged; in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1318,6 +1761,7 @@ def main() -> int:
     dense_err = dense_vs_plain(torch, np, dev)
     lut_err = lut_vs_plain(torch, np, dev)
     window_err = window_vs_plain(torch, np, dev)
+    q15_vs_plain(torch, np, dev)
     launches, eng, feeds, art, events = main_path(torch, np, dev)
     profiled_window(torch, eng, feeds)
     sw = eng.kernel.sw
@@ -1336,18 +1780,22 @@ def main() -> int:
     del single
     failover(torch, np, dev, art, feeds)
     t = timing(torch, sw, art)
+    del feeds, art
+    lm = lm_path(torch, np, dev, card)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"
     rows = [("q15_step", f"{src}:119", launches, max_err),
             ("q15_step_dense", f"{src}:146", k2["launches"], dense_err),
             ("fastgrnn_window", f"{src}:31", k3_launches, window_err),
             ("lut_act", "src/repro/kernels/lut_act/kernel.py:25",
-             k4_launches, lut_err)]
+             k4_launches, lut_err),
+            ("q15_matmul", "src/repro/kernels/q15_matmul/kernel.py:26",
+             lm["launches"], lm["max_abs_err"])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
         "launches": n, "max_abs_err": err, "ms": t[name]["ms"],
         "plain_ms": t[name]["plain_ms"], "bound_ms": t[name]["bound_ms"],
-        "bound_by": t[name]["bound_by"], "library_ms": None}
+        "bound_by": t[name]["bound_by"], "library_ms": t[name]["library_ms"]}
         for name, replaces, n, err in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

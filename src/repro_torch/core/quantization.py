@@ -6,11 +6,12 @@ Weight quantization (paper Eq. (8) + Appendix B):
     Wq      = clip(round(W / scale_l), -2^15, 2^15 - 1)
     dequant = float(Wq) * scale_l
 
-Every step runs in float32 on CPU tensors: ``amax / qmax`` is a float32
-division, ``torch.round`` rounds half to even, and ``w / scale`` divides
-by a 0-dim tensor (never by a Python float, which PyTorch's CUDA division
-turns into a multiply by the reciprocal).  The integers and scales are
-therefore bitwise those of the reference ``repro.core.quantization``.
+Every step runs in float32 on the tensor's device: ``amax / qmax`` and
+``w / scale`` are float32 divisions by 0-dim tensors on that device (never
+by a Python number or a CPU tensor, which PyTorch's CUDA division turns
+into a multiply by the reciprocal), and ``torch.round`` rounds half to
+even.  The integers and scales are therefore bitwise those of the
+reference ``repro.core.quantization``, on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ def quantize_tensor(w: torch.Tensor, qmax: int):
     rounded float32 integers and the 0-dim float32 scale."""
     w = torch.as_tensor(w, dtype=torch.float32)
     amax = w.abs().max()
-    scale = torch.where(amax > 0, amax / qmax,
-                        torch.tensor(1.0 / qmax, dtype=torch.float32))
+    f32 = dict(dtype=torch.float32, device=w.device)
+    scale = torch.where(amax > 0, amax / torch.tensor(qmax, **f32),
+                        torch.tensor(1.0 / qmax, **f32))
     q = torch.clamp(torch.round(w / scale), -qmax - 1, qmax)
     return q, scale
 

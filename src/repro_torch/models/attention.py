@@ -1,0 +1,220 @@
+"""Grouped-query attention: full-sequence (causal, sliding-window or
+bidirectional) and serving (prefill -> KV cache -> single-token decode),
+reference ``repro.models.attention``.
+
+The attention math is plain torch, written op for op like the reference
+(the reference computes it outside any Pallas kernel, so it is no kernel
+of the port): scores in float32, ``-1e30`` masks, float32 softmax, and the
+flash-style online softmax of ``chunked_attention`` for prompts of
+``CHUNKED_THRESHOLD`` tokens or more.  The decode functions write the new
+token's K/V into the cache tensors they are given, in place, and return
+them; a row that is not active keeps its cache bit for bit.  Sequence-
+sharded flash decoding and the flash backward belong with training and
+``launch/`` and are not here.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import layers as L
+
+CHUNKED_THRESHOLD = 2048  # use the flash-style path for S >= this
+NEG = -1e30
+
+
+def attn_init(generator, d_model: int, num_heads: int, num_kv_heads: int,
+              head_dim: int, *, qkv_bias: bool = False,
+              dtype=torch.float32) -> dict:
+    return {
+        "q": L.dense_init(generator, d_model, num_heads * head_dim,
+                          bias=qkv_bias, dtype=dtype),
+        "k": L.dense_init(generator, d_model, num_kv_heads * head_dim,
+                          bias=qkv_bias, dtype=dtype),
+        "v": L.dense_init(generator, d_model, num_kv_heads * head_dim,
+                          bias=qkv_bias, dtype=dtype),
+        "o": L.dense_init(generator, num_heads * head_dim, d_model,
+                          bias=False, dtype=dtype),
+    }
+
+
+def _split_heads(x, n, hd):
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _repeat_kv(k, n_rep: int):
+    """(B, S, KV, hd) -> (B, S, KV*n_rep, hd) by repetition (GQA)."""
+    if n_rep == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(
+        b, s, kv * n_rep, hd)
+
+
+def chunked_attention(q, k, v, causal: bool = True,
+                      window: int | None = None, q_chunk: int = 512,
+                      k_chunk: int = 1024):
+    """Flash-style attention, forward only: online softmax over KV chunks,
+    never materializing the (Sq, Sk) score matrix.
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) -> (B, Sq, H, hd)."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    qc, kc = min(q_chunk, sq), min(k_chunk, sk)
+    qpad, kpad = (-sq) % qc, (-sk) % kc
+    if qpad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, qpad))
+    if kpad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, kpad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, kpad))
+    nq, nk = (sq + qpad) // qc, (sk + kpad) // kc
+    scale = hd ** -0.5
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qx = q[:, qi * qc:(qi + 1) * qc]
+        m = torch.full((b, h, qc), -torch.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, qc, hd), dtype=torch.float32, device=dev)
+        qpos = qi * qc + torch.arange(qc, device=dev)[:, None]
+        for kj in range(nk):
+            kx = k[:, kj * kc:(kj + 1) * kc]
+            vx = v[:, kj * kc:(kj + 1) * kc]
+            s = torch.einsum("bqhd,bkhd->bhqk", qx.float(),
+                             kx.float()) * scale
+            kpos = kj * kc + torch.arange(kc, device=dev)[None, :]
+            msk = kpos < sk
+            if causal:
+                msk = msk & (kpos <= qpos)
+            if window is not None:
+                msk = msk & (kpos > qpos - window)
+            s = s + torch.where(msk, 0.0, NEG)[None, None]
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(-1)
+            acc = corr[..., None] * acc + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vx.dtype), vx).float()
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.movedim(1, 2))                  # (b, qc, h, hd)
+    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+
+
+def attention_scores(q, k, v, *, causal: bool, window: int | None = None,
+                     q_offset: int = 0, kv_len_mask=None):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) -> (B, Sq, H, hd).
+
+    ``q_offset``: absolute position of q[0].  ``kv_len_mask``: optional
+    (B, Sk) bool of valid cache slots."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    scale = hd ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = torch.where(mask[None, None], logits, NEG)
+    if kv_len_mask is not None:
+        logits = torch.where(kv_len_mask[:, None, None, :], logits, NEG)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _qkv(p, x, cfg, compute_dtype):
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(L.dense_apply(p["q"], x, compute_dtype=compute_dtype),
+                     H, hd)
+    k = _split_heads(L.dense_apply(p["k"], x, compute_dtype=compute_dtype),
+                     KV, hd)
+    v = _split_heads(L.dense_apply(p["v"], x, compute_dtype=compute_dtype),
+                     KV, hd)
+    return q, k, v
+
+
+def _out(p, o, x, cfg, compute_dtype):
+    H, hd = cfg.num_heads, cfg.head_dim
+    return L.dense_apply(p["o"], o.reshape(x.shape[:-1] + (H * hd,)),
+                         compute_dtype=compute_dtype)
+
+
+def attn_apply(p, x, positions, cfg, *, causal=True, window=None,
+               compute_dtype=torch.bfloat16):
+    """Full-sequence attention (prefill). x: (B, S, D).  Returns the output
+    and the (k, v) the caller may keep as the prefill cache."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = _qkv(p, x, cfg, compute_dtype)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    kr, vr = _repeat_kv(k, H // KV), _repeat_kv(v, H // KV)
+    if x.shape[1] >= CHUNKED_THRESHOLD:
+        o = chunked_attention(q, kr, vr, causal, window)
+    else:
+        o = attention_scores(q, kr, vr, causal=causal, window=window)
+    return _out(p, o, x, cfg, compute_dtype), (k, v)
+
+
+def _attend_cache(p, q, x, cache_k, cache_v, valid, cfg, compute_dtype):
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    kr = _repeat_kv(cache_k.to(compute_dtype), H // KV)
+    vr = _repeat_kv(cache_v.to(compute_dtype), H // KV)
+    o = attention_scores(q, kr, vr, causal=False, q_offset=0,
+                         kv_len_mask=valid)
+    return _out(p, o, x, cfg, compute_dtype)
+
+
+def attn_decode_slotted(p, x, cache_k, cache_v, pos, cfg, *, active=None,
+                        window=None, compute_dtype=torch.bfloat16):
+    """Per-slot single-token decode (continuous batching).  x: (B, 1, D);
+    cache_k/v: (B, S_max, KV, hd); ``pos``: (B,) integer, each row's own
+    cache fill level.  Row ``b`` writes its new K/V at ``pos[b]`` (in
+    place) and attends over its own prefix ``0..pos[b]``.  ``active``:
+    optional (B,) bool; an inactive row writes back the value its cache
+    already holds, so its rows stay bit for bit (and so does a row whose
+    ``pos`` is past the cache, which the reference's one-hot select never
+    writes).  Returns (out, cache_k, cache_v)."""
+    s_max = cache_k.shape[1]
+    q, k, v = _qkv(p, x, cfg, compute_dtype)
+    pos = pos.long()
+    q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
+    rows = torch.arange(x.shape[0], device=x.device)
+    write = pos < s_max
+    if active is not None:
+        write = write & active
+    at = torch.clamp(pos, max=s_max - 1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        old = cache[rows, at]
+        cache[rows, at] = torch.where(write[:, None, None],
+                                      new[:, 0].to(cache.dtype), old)
+    span = torch.arange(s_max, device=x.device)[None, :]
+    valid = span <= pos[:, None]
+    if window is not None:
+        valid = valid & (span > pos[:, None] - window)
+    return (_attend_cache(p, q, x, cache_k, cache_v, valid, cfg,
+                          compute_dtype), cache_k, cache_v)
+
+
+def attn_decode(p, x, cache_k, cache_v, cache_len: int, cfg, *, window=None,
+                compute_dtype=torch.bfloat16):
+    """Single-token decode at one shared fill level.  x: (B, 1, D);
+    cache_k/v: (B, S_max, KV, hd); ``cache_len``: int.  Writes the new
+    K/V at ``cache_len`` in place; returns (out, cache_k, cache_v)."""
+    s_max = cache_k.shape[1]
+    pos = torch.full((x.shape[0], 1), cache_len, dtype=torch.long,
+                     device=x.device)
+    q, k, v = _qkv(p, x, cfg, compute_dtype)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
+    span = torch.arange(s_max, device=x.device)
+    valid = span <= cache_len
+    if window is not None:
+        valid = valid & (span > cache_len - window)
+    valid = valid[None, :].expand(x.shape[0], s_max)
+    return (_attend_cache(p, q, x, cache_k, cache_v, valid, cfg,
+                          compute_dtype), cache_k, cache_v)

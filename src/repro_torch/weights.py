@@ -7,7 +7,9 @@ zeta, nu, head_w, head_b``) becomes float32 CPU tensors; quantized
 parameters ``(q, scales, fp, bits)`` become a port
 :class:`~repro_torch.core.quantization.QuantizedParams`.  ``.fgar`` bytes
 written by the reference load directly through
-:meth:`repro_torch.compress.ModelArtifact.from_bytes`.
+:meth:`repro_torch.compress.ModelArtifact.from_bytes`.  An LM parameter
+tree (nested dicts of numpy arrays, bfloat16 leaves included) becomes the
+port's nested dict of tensors through :func:`lm_params_from_numpy`.
 
 :func:`random_params` draws seeded float parameters at the paper's
 ``fastgrnn_har`` width (H=16, d=3, 6 classes, r_w=2, r_u=8) with the
@@ -21,11 +23,32 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantization import QuantizedParams, as_f32_cpu
+from repro_torch.device import resolve_device
+
 
 def params_from_numpy(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Float parameter dict (numpy or array-like leaves) -> float32 CPU
     tensors, bit for bit."""
     return {k: as_f32_cpu(v) for k, v in params.items()}
+
+
+def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """The reference's LM parameter pytree, with ``np.asarray`` applied to
+    each leaf, as the port's nested dict of tensors on ``device`` (the
+    card unless the caller asks for the CPU), bit for bit: stacked
+    ``blocks`` keep their leading L axis, float32 leaves carry across as
+    they are, and bfloat16 leaves (``ml_dtypes`` arrays, told by their
+    dtype's name) through their 16-bit patterns."""
+    device = resolve_device(device)
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
+                             ).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
 
 
 def quantized_from_numpy(q: Mapping[str, Any], scales: Mapping[str, Any],

@@ -30,6 +30,7 @@ def test_every_module_imports_and_steps_with_jax_and_repro_blocked():
     code = f"""
 import importlib, importlib.abc, sys
 sys.modules["jax"] = None
+sys.modules["ml_dtypes"] = None
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name == "repro" or name.startswith("repro."):
@@ -72,8 +73,18 @@ lg = fastgrnn.forward_window(deq, torch.from_numpy(xs), sigma=lut_sigmoid,
                              tanh=lut_tanh)
 preds = (traj @ deq["head_w"] + deq["head_b"]).argmax(-1).T.numpy()
 assert lg.shape == (2, 6) and warmup.characterize(preds).n_windows == 2
-assert not any(n == "jax" or n.startswith(("jax.", "repro."))
-               or n == "repro" for n in sys.modules if sys.modules[n])
+from repro_torch import configs
+from repro_torch.models import transformer as T
+from repro_torch.serve.engine import Engine, ServeConfig
+cfg = configs.reduced(configs.get("qwen2-1.5b"), compute_dtype="float32")
+params = T.init(cfg, torch.Generator().manual_seed(0))
+eng = Engine(cfg, params, ServeConfig(max_len=16, max_slots=2,
+                                      quant_bits=16), device="cpu")
+out = eng.generate(np.ones((3, 4), np.int32), max_new=3)
+assert out.shape == (3, 3) and eng.stats()["prefills"] == 3
+assert not any(n in ("jax", "repro", "ml_dtypes")
+               or n.startswith(("jax.", "repro.", "ml_dtypes."))
+               for n in sys.modules if sys.modules[n])
 print("ok", {len(port_modules())})
 """
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
@@ -97,8 +108,7 @@ def _imports(path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _imports(path)
-           if m == "jax" or m.startswith("jax.") or m == "repro"
-           or m.startswith("repro.")]
+           if m.split(".")[0] in ("jax", "repro", "ml_dtypes")]
     assert not bad, f"{path}: imports {bad}"
 
 
@@ -114,6 +124,11 @@ def test_default_device_raises_without_a_card():
     from repro_torch.serve.streaming import StreamingEngine
     from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
     from repro_torch.kernels.fastgrnn_cell.ops import fastgrnn_window_kernel
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+    lm_cfg = configs.reduced(configs.get("qwen2-1.5b"))
+    lm_params = T.init(lm_cfg, torch.Generator().manual_seed(0))
     params = weights.random_params(0)
     qp = quantize_params(params, QuantConfig())
     sw = StepWeights.from_quantized(qp)
@@ -123,7 +138,13 @@ def test_default_device_raises_without_a_card():
                  lambda: make_fastgrnn_step(sw, mxu=True),
                  lambda: Q15StreamStep(qp, mxu=True),
                  lambda: FleetEngine(qp), lambda: WindowScan(params),
-                 lambda: fastgrnn_window_kernel(params, xs)):
+                 lambda: fastgrnn_window_kernel(params, xs),
+                 lambda: Engine(lm_cfg, lm_params),
+                 lambda: Engine(lm_cfg, lm_params, device="cuda:0"),
+                 lambda: T.init_cache(lm_cfg, 1, 4),
+                 lambda: T.init_slot_cache(lm_cfg, 1, 4),
+                 lambda: weights.lm_params_from_numpy(
+                     {"w": np.zeros(2, np.float32)})):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
 
@@ -189,10 +210,14 @@ def test_cuda_source_holds_the_numerics_contract():
         sources[p.name] = src + "".join(
             text for h, text in headers.items() if f'#include "{h}"' in src)
     assert set(sources) == {"q15_step.cu", "q15_step_dense.cu",
-                            "fastgrnn_window.cu", "lut_act.cu"}
+                            "fastgrnn_window.cu", "lut_act.cu",
+                            "q15_matmul.cu"}
     for name, src in sources.items():
         needles = ["__float2int_rz", "__fmul_rn", "__fadd_rn", "__fsub_rn",
                    'extern "C"', "cudaGetLastError"]
+        if name == "q15_matmul.cu":     # bf16 products, float32 sums
+            needles = ["__float2bfloat16_rn", "__fmul_rn", "__fadd_rn",
+                       'extern "C"', "cudaGetLastError"]
         if name == "q15_step.cu":       # Q15 activation storage
             needles += ["__fdiv_rn", "rintf"]
         if name == "lut_act.cu":        # lerp's (x - lo) / bw, bf16 output

@@ -1,0 +1,219 @@
+"""Port parity, the ``dense`` LM (``repro_torch.models.transformer``) for
+reduced deepseek-7b (untied head, MHA) and qwen2-1.5b (tied embeddings,
+GQA, QKV bias), in float32 on the reference's own initialised parameters:
+``forward``, ``prefill``, ``decode_step``, ``prefill_into_slot`` and
+``decode_step_slotted`` against the reference's (logits within 1e-4, the
+reference's bound in ``tests/test_decode_consistency.py``); the port's
+decode against its own forward (mirror of that file's
+``test_decode_matches_forward`` and ``test_prefill_then_decode_continuous``);
+an inactive slot kept bit for bit; every other family refused."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as JC
+from repro.models import transformer as JT
+from repro_torch import configs as C
+from repro_torch import weights
+from repro_torch.models import transformer as T
+
+ATOL = 1e-4
+ARCHS = ["deepseek-7b", "qwen2-1.5b"]
+
+
+def setup(arch):
+    jcfg = JC.reduced(JC.get(arch), compute_dtype="float32",
+                      param_dtype="float32")
+    cfg = C.reduced(C.get(arch), compute_dtype="float32",
+                    param_dtype="float32")
+    with jax.threefry_partitionable(False):
+        jp = JT.init(jcfg, jax.random.PRNGKey(0))
+    p = weights.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12))
+    return jcfg, jp, cfg, p, toks
+
+
+def close(got, want, atol=ATOL):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=atol)
+
+
+def tk(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_and_prefill_match_reference(arch):
+    jcfg, jp, cfg, p, toks = setup(arch)
+    want, _, jcaches = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                                  emit_caches=True)
+    got, aux, caches = T.forward(cfg, p, {"tokens": tk(toks)},
+                                 emit_caches=True)
+    assert got.dtype == torch.float32 and got.shape == (2, 12,
+                                                        cfg.vocab_size)
+    close(got, want)
+    close(caches["k"], jcaches["k"])
+    close(caches["v"], jcaches["v"])
+    assert float(aux["aux_loss"]) == 0.0
+    want, jcache = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :7])},
+                              max_len=16)
+    got, cache = T.prefill(cfg, p, {"tokens": tk(toks[:, :7])}, max_len=16)
+    close(got, want)
+    close(cache["k"], jcache["k"])
+    close(cache["v"], jcache["v"])
+    assert cache["len"] == int(jcache["len"]) == 7
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_matches_reference_and_forward(arch):
+    """Token by token from an empty cache: each logit row within 1e-4 of
+    the reference's decode and of the port's own forward."""
+    jcfg, jp, cfg, p, toks = setup(arch)
+    full, _, _ = T.forward(cfg, p, {"tokens": tk(toks)})
+    jcache = JT.init_cache(jcfg, 2, 16, dtype=jnp.float32)
+    cache = T.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    for t in range(toks.shape[1]):
+        want, jcache = JT.decode_step(jcfg, jp, jcache,
+                                      jnp.asarray(toks[:, t:t + 1]))
+        got, cache = T.decode_step(cfg, p, cache, tk(toks[:, t:t + 1]))
+        close(got, want)
+        close(got[:, 0], full[:, t].numpy())
+    close(cache["k"], jcache["k"])
+    assert cache["len"] == int(jcache["len"]) == toks.shape[1]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_then_decode_continuous(arch):
+    jcfg, jp, cfg, p, toks = setup(arch)
+    full, _, _ = T.forward(cfg, p, {"tokens": tk(toks)})
+    half = 6
+    _, cache = T.prefill(cfg, p, {"tokens": tk(toks[:, :half])}, max_len=16)
+    for t in range(half, toks.shape[1]):
+        lg, cache = T.decode_step(cfg, p, cache, tk(toks[:, t:t + 1]))
+        close(lg[:, 0], full[:, t].numpy())
+
+
+def slotted_run(T_mod, cfg, p, toks, conv, cache):
+    """Admit two sequences into slots 0 and 2 of a 3-slot cache at prompt
+    lengths 5 and 7, then 5 ticks with slot 1 empty and slot 2 idle on the
+    third; returns the per-tick logits and caches."""
+    out = []
+    for slot, row, n in ((0, 0, 5), (2, 1, 7)):
+        lg, cache = T_mod.prefill_into_slot(
+            cfg, p, cache, {"tokens": conv(toks[row:row + 1, :n])}, slot)
+        out.append(lg)
+    fed = [5, 7]
+    for t in range(5):
+        active = np.array([True, False, t != 2])
+        nxt = np.zeros((3, 1), np.int64)
+        nxt[0, 0] = toks[0, fed[0]]
+        nxt[2, 0] = toks[1, fed[1]]
+        lg, cache = T_mod.decode_step_slotted(cfg, p, cache, conv(nxt),
+                                              conv(active))
+        fed[0] += 1
+        fed[1] += int(active[2])
+        out.append(lg)
+        out.append(cache["pos"])
+    return out, cache
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_slotted_prefill_and_decode_match_reference(arch):
+    jcfg, jp, cfg, p, toks = setup(arch)
+    want, jcache = slotted_run(
+        JT, jcfg, jp, toks, jnp.asarray,
+        JT.init_slot_cache(jcfg, 3, 16, dtype=jnp.float32))
+    got, cache = slotted_run(
+        T, cfg, p, toks, tk, T.init_slot_cache(cfg, 3, 16,
+                                               dtype=torch.float32,
+                                               device="cpu"))
+    for g, w in zip(got, want):
+        close(g, w)
+    close(cache["k"], jcache["k"])
+    close(cache["v"], jcache["v"])
+    assert cache["pos"].tolist() == np.asarray(jcache["pos"]).tolist() \
+        == [10, 0, 11]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_slotted_decode_matches_own_forward(arch):
+    _, _, cfg, p, toks = setup(arch)
+    full, _, _ = T.forward(cfg, p, {"tokens": tk(toks)})
+    cache = T.init_slot_cache(cfg, 2, 16, dtype=torch.float32,
+                                device="cpu")
+    for slot, n in ((0, 4), (1, 9)):
+        lg, cache = T.prefill_into_slot(cfg, p, cache,
+                                        {"tokens": tk(toks[slot:slot + 1, :n])},
+                                        slot)
+        close(lg[0], full[slot, :n].numpy())
+    fed = [4, 9]
+    for _ in range(3):
+        nxt = tk([[toks[0, fed[0]]], [toks[1, fed[1]]]])
+        lg, cache = T.decode_step_slotted(cfg, p, cache, nxt)
+        for s in (0, 1):
+            close(lg[s, 0], full[s, fed[s]].numpy())
+            fed[s] += 1
+    # the hidden states the quantized-head engine takes, and its rows' head
+    h, _ = T.decode_step_slotted(cfg, p, cache, tk([[1], [2]]),
+                                 return_hidden=True)
+    assert h.shape == (2, 1, cfg.d_model)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_inactive_slot_is_kept_bit_for_bit(arch):
+    _, _, cfg, p, toks = setup(arch)
+    cache = T.init_slot_cache(cfg, 2, 16, dtype=torch.float32,
+                                device="cpu")
+    for slot in (0, 1):
+        _, cache = T.prefill_into_slot(
+            cfg, p, cache, {"tokens": tk(toks[slot:slot + 1, :6])}, slot)
+    before = {k: cache[k].clone() for k in ("k", "v", "pos")}
+    _, cache = T.decode_step_slotted(cfg, p, cache, tk([[3], [4]]),
+                                     tk([True, False]))
+    for name in ("k", "v"):
+        assert torch.equal(cache[name][:, 1].view(torch.int32),
+                           before[name][:, 1].view(torch.int32))
+        assert not torch.equal(cache[name][:, 0], before[name][:, 0])
+    assert cache["pos"].tolist() == [7, 6]
+    # a row whose fill level is past the cache writes nothing either
+    cache["pos"][1] = 16
+    before = cache["k"].clone()
+    _, cache = T.decode_step_slotted(cfg, p, cache, tk([[3], [4]]))
+    assert torch.equal(cache["k"][:, 1], before[:, 1])
+    # and reset_cache_slot zeroes one slot only
+    cache = T.reset_cache_slot(cfg, cache, 1)
+    assert not cache["k"][:, 1].any() and int(cache["pos"][1]) == 0
+    assert cache["k"][:, 0].any()
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "moonshot-v1-16b-a3b",
+                                  "mamba2-780m", "zamba2-1.2b",
+                                  "internvl2-76b", "hubert-xlarge"])
+def test_other_families_are_refused(arch):
+    cfg = C.reduced(C.get(arch))
+    calls = [lambda: T.init(cfg, torch.Generator().manual_seed(0)),
+             lambda: T.forward(cfg, {}, {"tokens": tk([[1]])}),
+             lambda: T.init_cache(cfg, 1, 4, device="cpu"),
+             lambda: T.init_slot_cache(cfg, 1, 4, device="cpu"),
+             lambda: T.decode_step(cfg, {}, {"len": 0}, tk([[1]])),
+             lambda: T.decode_step_slotted(cfg, {}, {"pos": tk([0])},
+                                           tk([[1]]))]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            call()
+
+
+def test_configs_are_the_reference_data():
+    import dataclasses
+    assert list(C.ARCHS) == list(JC.ARCHS)
+    for name, cfg in C.ARCHS.items():
+        want = dataclasses.asdict(JC.ARCHS[name])
+        assert dataclasses.asdict(cfg) == want, name
+        assert C.reduced(cfg) == C.reduced(cfg)
+        assert dataclasses.asdict(C.reduced(cfg)) == dataclasses.asdict(
+            JC.reduced(JC.ARCHS[name]))
+        assert cfg.pdtype == getattr(torch, cfg.param_dtype)
+    assert C.applicable(C.get("qwen2-1.5b"), C.SHAPES["long_500k"]) == \
+        JC.applicable(JC.get("qwen2-1.5b"), JC.SHAPES["long_500k"])
