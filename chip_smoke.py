@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and window paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving, window and LM paths on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,8 @@ Phases (any failure exits non-zero; nothing is caught):
    FP32 cell and classifier head run float32 matmuls).
 2. build every kernel (``src/repro_torch/csrc/``: ``q15_step.cu`` K1,
    ``q15_step_dense.cu`` K2, ``fastgrnn_window.cu`` K3, ``lut_act.cu``
-   K4, ``q15_matmul.cu`` K5) with nvcc, one process per source, started
-   together.
+   K4, ``q15_matmul.cu`` K5, ``ssd_scan.cu`` K6) with nvcc, one process
+   per source, started together.
 3. K1 vs plain on the card: S = 131,072 streams at paper width, low- and
    full-rank, deployed / calibrated / naive activation storage, about a
    third of the rows masked, 2 % of them driven into LUT saturation, 128
@@ -39,7 +40,14 @@ Phases (any failure exits non-zero; nothing is caught):
    bfloat16, and within 1e-5 x max|plain| plus one bfloat16 ulp of the
    plain version's bfloat16 output (a float32 sum in another order may
    round to the neighbouring bfloat16); leading dims (2, 5, K) through
-   ``ops.q15_matmul``.
+   ``ops.q15_matmul``.  Then K6 vs ``kernels.ssd_scan.kernel.plain``
+   through ``ops.ssd_scan`` on every shape of the reference's
+   ``tests/test_kernels.py`` and on b = 2 x S = 1000 at mamba2-780m's and
+   zamba2-1.2b's head layouts (chunk 256: four chunks, the last ragged),
+   float32 and bfloat16 x / B / C: float32 y and state within rtol = atol
+   = 1e-4 (the reference's bound); bfloat16 y within 1e-5 x max|y| plus
+   one bfloat16 ulp of plain's y, the float32 state as in float32; the
+   plain version on the card within 1e-4 of the CPU's on two heads.
 5. the single-engine main path: ``StreamingEngine.from_artifact`` on
    ``cuda`` with 131,072 slots over an artifact (seeded PTQ at
    ``fastgrnn_har`` width, round-tripped through ``.fgar``); 131,072 +
@@ -87,7 +95,10 @@ Phases (any failure exits non-zero; nothing is caught):
     K5 at the LM head's shape, int16 and int8 weights (two input sets of
     467 MB), with ``torch.mm`` of the bfloat16 x against the same weights
     converted to bfloat16 beforehand as the library yardstick of its bytes
-    (not the same function: no integer weights, no scale).
+    (not the same function: no integer weights, no scale).  K6 at b = 1 x
+    S = 1000 at mamba2-780m width in bfloat16 (four input sets of 31 MB),
+    bound by the least operations of the scan at any chunk length (no
+    library call computes the scan).
 12. the LM serving path at full Qwen2-1.5B width (bfloat16 weights drawn
     from a CUDA generator seeded 0): ``quantize_tree`` on the card bitwise
     equal to the CPU's (int16 and int8) on the embedding table, layer 0's
@@ -105,6 +116,22 @@ Phases (any failure exits non-zero; nothing is caught):
     inactive for the middle 4: the decode logits within 1e-3 of
     ``forward`` on each whole sequence, the inactive and empty slots'
     cache rows and ``pos`` bitwise unchanged.
+13. mamba2-780m (``ssm``) at full width, the same way (bfloat16 weights
+    from a CUDA generator seeded 0): 8 slots, ``max_len`` 1088, 24
+    requests from seed 0 with prompts of 64-1000 tokens (one to four SSD
+    chunks, ragged tails) and ``max_new`` 8-64; every mamba layer's
+    prefill scan is K6: K6 launches = prefills x 48, K5 launches =
+    prefills + decode ticks, and every K6 and K5 call is held against its
+    plain version on the same inputs (phase 4's bounds); tokens/s, the
+    engine's spans, peak memory and a profiled window of 10 decode ticks.
+    Then the float32 slotted decode as in phase 12, over prompts of 57 and
+    300 tokens (two chunks): within 1e-3 of ``forward``, the inactive and
+    empty slots' SSM states, conv tails and ``pos`` bitwise unchanged.
+14. zamba2-1.2b (``hybrid``: 38 mamba layers and one shared attention +
+    GELU MLP block after every sixth) at full width: 4 slots, 8 requests
+    with prompts of 64-600 tokens and ``max_new`` 8-32; the same
+    completion checks, K6 launches = prefills x 38, every K6 and K5 call
+    held against its plain version.  Each model is freed before the next.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -153,6 +180,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # ~1.98 GHz).  The FastGRNN kernels' functions round between each multiply
 # and add, so each is an instruction of its own there.
 FP32_OPS_PER_S = 67e12 / 2
+BF16_FLOP_PER_S = 989e12   # dense bfloat16 on the tensor cores (data sheet)
 W_BATCH = 131_072         # window scan: windows per launch ...
 W_STEPS = 128             # ... of this many samples (one paper window)
 LUT_ELEMS = 1 << 24       # LUT kernel-vs-plain elements per configuration
@@ -173,6 +201,18 @@ K5_REL = 1e-5             # K5 vs plain, relative to max |plain| (sum order)
 K5_REF_REL = 2e-2         # K5 vs the float32 oracle (the reference's bound)
 F32_DECODE_ATOL = 1e-3    # f32 slotted decode vs forward at full width
 LM_PROFILE_TICKS = 10     # decode ticks in the LM path's profiled window
+SSM_ARCH = "mamba2-780m"  # phase 13's model, at full width
+SSM_PROMPT = (64, 1000)   # prompt tokens: one to four SSD chunks of 256
+SSM_MAX_LEN = 1088        # the longest prompt + the largest budget
+HYBRID_ARCH = "zamba2-1.2b"  # phase 14's model, at full width
+HYBRID_SLOTS = 4
+HYBRID_REQUESTS = 8
+HYBRID_PROMPT = (64, 600)
+HYBRID_NEW = (8, 32)
+HYBRID_MAX_LEN = 640
+K6_TOL = 1e-4             # K6 vs plain, float32 (the reference's rtol = atol)
+K6_BF16_REL = 1e-5        # bfloat16 y: x max|y|, plus one bfloat16 ulp
+K6_TIMING_S = 1000        # K6 timed at b = 1 x S tokens, mamba2-780m width
 
 
 def fail(msg: str) -> None:
@@ -227,7 +267,7 @@ def environment(torch) -> str:
 
 
 KERNELS = ("q15_step", "q15_step_dense", "fastgrnn_window", "lut_act",
-           "q15_matmul")
+           "q15_matmul", "ssd_scan")
 
 
 def build() -> None:
@@ -1369,10 +1409,71 @@ def timing_jobs(torch, sw, art) -> dict:
             # does) and one multiply by the scale per output
             ops=m * k * n + m * n,
             what=f"M={m} x K={k} x N={n}, {str(dtype)[6:]} weights")
+    # K6 at the SSM path's prefill shape: b = 1 x S = K6_TIMING_S tokens at
+    # mamba2-780m width, bfloat16 x / B / C (the engine's compute dtype) in
+    # the kernel's per-head layout (the one group of B and C broadcast over
+    # the heads, as ops.ssd_scan hands them over); four sets of 31 MB
+    from repro_torch import configs
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    from repro_torch.kernels.ssd_scan.kernel import plain as k6_plain
+    c = configs.get(SSM_ARCH)
+    h, p, n, q = (2 * c.d_model // c.mamba_headdim, c.mamba_headdim,
+                  c.ssm_state, c.ssd_chunk)
+    s = K6_TIMING_S
+    bf = torch.bfloat16
+
+    def k6_set():
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev)
+        return (rnd(h, s, p).to(bf),
+                torch.nn.functional.softplus(rnd(h, s, 1)),
+                -torch.exp(rnd(h, 1)),
+                rnd(1, s, n).to(bf).expand(h, s, n).contiguous(),
+                rnd(1, s, n).to(bf).expand(h, s, n).contiguous())
+    ops_ms, best_q, fp32, flop = ssd_least_work(h, 1, s, p, n)
+    scan = SSDScan()
+    jobs["ssd_scan"] = dict(
+        kernel=lambda *a: scan(*a, chunk=q),
+        plain=lambda *a: k6_plain(*a, chunk=q),
+        sets=[k6_set() for _ in range(4)], counts=(30, 3, 4, 1),
+        # per head x and y in bfloat16, dt and A in float32, the state in
+        # float32; B and C in bfloat16 once for their one group
+        bytes=h * (2 * s * p * 2 + s * 4 + 4 + n * p * 4) + 2 * s * n * 2,
+        ops=fp32 + flop, ops_ms=ops_ms,
+        ops_what=f"the least over chunk lengths, at {best_q}: {fp32} fp32 "
+                 f"instructions over 33.5 T/s, {flop} bfloat16 tensor-core "
+                 f"FLOP over 989 T/s",
+        what=f"b=1 x S={s} at mamba2-780m width ({h} heads of P={p}, "
+             f"N={n}, chunk {q}), bfloat16")
     for job in jobs.values():
         job["in_bytes"] = sum(t.numel() * t.element_size()
                               for st in job["sets"] for t in st)
     return jobs
+
+
+def ssd_least_work(h, g, s, p, n) -> tuple:
+    """The SSD scan's least operations for h heads (P = p) over g groups
+    of B and C (N = n) and s tokens: its y and final state do not depend
+    on the chunk length, so this is the chunked algorithm at the length
+    that needs the least time (length 1 is the recurrence, 3 N P float32
+    multiply-adds per token and head).  Per chunk of k rows: C B^T over
+    its lower triangle once per group, on the bfloat16 tensor cores (a
+    product of two bfloat16 values is exact in float32); per head in
+    float32, one FMA per multiply-add: M x over the triangle and four per
+    entry (M's difference, exp and two multiplies), C H and the state
+    update (N P per row each), N P for the state's decay.  The two units
+    issue side by side, so the time is the larger of theirs.  Returns
+    (ms, chunk length, float32 instructions, tensor-core FLOP)."""
+    best = None
+    for q in range(1, s + 1):
+        ks = [min(q, s - c0) for c0 in range(0, s, q)]
+        tri = sum(k * (k + 1) // 2 for k in ks)
+        fp32 = h * (tri * (p + 4) + 2 * s * n * p + len(ks) * n * p)
+        flop = g * tri * n * 2
+        ms = max(fp32 / FP32_OPS_PER_S, flop / BF16_FLOP_PER_S) * 1e3
+        if best is None or ms < best[0]:
+            best = (ms, q, fp32, flop)
+    return best
 
 
 def timing(torch, sw, art) -> dict:
@@ -1420,7 +1521,9 @@ def timing(torch, sw, art) -> dict:
             torch.cuda.synchronize()
         prof_k = kernel_device_us(prof, f"{n.split()[0]}_kernel")
         t_bytes = job["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = job["ops"] / FP32_OPS_PER_S * 1e3
+        t_ops = job.get("ops_ms", job["ops"] / FP32_OPS_PER_S * 1e3)
+        ops_what = job.get("ops_what",
+                           f"{job['ops']} fp32 instructions over 33.5 T/s")
         bound = max(t_bytes, t_ops)
         ms = min(r[0] for r in kern[n])
         host_ms = min(r[1] for r in kern[n])
@@ -1435,8 +1538,8 @@ def timing(torch, sw, art) -> dict:
               f"{ms * 1e3:.3f} us)")
         lib_ms = min(r[0] for r in lib[n]) if n in lib else None
         print(f"timing {n}: bound {bound * 1e3:.3f} us ({job['bytes']} B over "
-              f"3.35 TB/s = {t_bytes * 1e3:.3f} us; {job['ops']} fp32 "
-              f"instructions over 33.5 T/s = {t_ops * 1e3:.3f} us); kernel at "
+              f"3.35 TB/s = {t_bytes * 1e3:.3f} us; {ops_what} = "
+              f"{t_ops * 1e3:.3f} us); kernel at "
               f"{bound / ms:.1%} of the bound; " + (
                   "no single PyTorch call computes this function, so there "
                   "is no library yardstick" if lib_ms is None else
@@ -1453,7 +1556,8 @@ def timing(torch, sw, art) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the LM serving path at full Qwen2-1.5B width
+# phases 12-14: the LM serving path at full width (Qwen2-1.5B, then the
+# Mamba-2 families: mamba2-780m and zamba2-1.2b)
 # ---------------------------------------------------------------------------
 
 def quantize_on_card(torch, params) -> None:
@@ -1486,30 +1590,23 @@ def quantize_on_card(torch, params) -> None:
           + f" in {time.perf_counter() - t0:.1f} s")
 
 
-def lm_requests(np, vocab: int) -> list:
+def lm_requests(np, vocab: int, n: int, prompt, new) -> list:
+    """``n`` (prompt, max_new) pairs from seed SEED: prompt lengths and
+    budgets uniform over the inclusive ranges ``prompt`` and ``new``."""
     rng = np.random.default_rng(SEED)
     reqs = []
-    for _ in range(LM_REQUESTS):
-        n = int(rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1))
-        new = int(rng.integers(LM_NEW[0], LM_NEW[1] + 1))
-        reqs.append((rng.integers(0, vocab, n).astype(np.int32), new))
+    for _ in range(n):
+        k = int(rng.integers(prompt[0], prompt[1] + 1))
+        m = int(rng.integers(new[0], new[1] + 1))
+        reqs.append((rng.integers(0, vocab, k).astype(np.int32), m))
     return reqs
 
 
-def lm_path(torch, np, dev, card: str) -> dict:
-    """The LM ``Engine`` at full Qwen2-1.5B width through its Q15 head (K5),
-    every head call checked against the plain version; then the same
-    weights in float32 through the slotted decode (see
-    :func:`lm_decode_continuity`)."""
-    from repro_torch import configs
-    from repro_torch.kernels.q15_matmul.kernel import Q15Matmul, plain
+def init_lm(torch, dev, cfg):
+    """The model at full width, weights drawn by ``models.transformer.init``
+    from a CUDA generator seeded SEED; prints what was drawn."""
     from repro_torch.models import transformer as T
-    from repro_torch.obs import MetricsRegistry, Observability, Tracer
     from repro_torch.pytree import tree_leaves
-    from repro_torch.serve.engine import Engine, ServeConfig
-
-    cfg = configs.get(LM_ARCH)
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
@@ -1517,124 +1614,332 @@ def lm_path(torch, np, dev, card: str) -> dict:
     for t in tree_leaves(params):
         by_dtype[str(t.dtype)[6:]] = by_dtype.get(str(t.dtype)[6:], 0) \
             + t.numel()
-    print(f"LM: {cfg.name} at full width ({cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV "
-          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}, tied embeddings, QKV bias, param_dtype "
-          f"{cfg.param_dtype}), {sum(by_dtype.values()):,} parameters ("
+    shape = [f"{cfg.num_layers} layers", f"d_model {cfg.d_model}"]
+    if cfg.family == "dense":
+        shape.append(f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads "
+                     f"of {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_kind}")
+    if cfg.uses_mamba:
+        shape.append(f"mamba d_inner {2 * cfg.d_model}, "
+                     f"{2 * cfg.d_model // cfg.mamba_headdim} SSM heads of "
+                     f"{cfg.mamba_headdim}, {cfg.mamba_groups} group, state "
+                     f"{cfg.ssm_state}, chunk {cfg.ssd_chunk}")
+    if cfg.family == "hybrid":
+        shape.append(f"one shared attention block ({cfg.num_heads} heads of "
+                     f"{cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_kind}) after "
+                     f"every {cfg.attn_every} mamba layers")
+    shape.append(f"vocab {cfg.vocab_size}, "
+                 f"{'tied' if cfg.tie_embeddings else 'untied'} head")
+    print(f"{cfg.name} ({cfg.family}) at full width: {', '.join(shape)}; "
+          f"{sum(by_dtype.values()):,} parameters ("
           + ", ".join(f"{n:,} {k}" for k, n in by_dtype.items())
-          + f"; the full-rank dense weights come out float32 as in the "
-          f"reference's init) from a CUDA generator seeded {SEED} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    quantize_on_card(torch, params)
+          + f"; param_dtype {cfg.param_dtype}, the full-rank dense weights "
+          f"float32 as in the reference's init) from a CUDA generator seeded "
+          f"{SEED} in {time.perf_counter() - t0:.1f} s")
+    return params
 
+
+def ssd_plain(torch, x, dt, A, B, C, chunk: int):
+    """K6's plain version in the model layout (``ops.ssd_scan``'s fold:
+    groups broadcast over their heads, batch x heads folded)."""
+    from repro_torch.kernels.ssd_scan.kernel import plain
+    b, s, h, p = x.shape
+    n = B.shape[3]
+
+    def fold(t, width):
+        t = t.repeat_interleave(h // t.shape[2], dim=2)
+        return t.movedim(2, 1).reshape(b * h, s, width)
+    y, st = plain(fold(x, p), fold(dt.float()[..., None], 1),
+                  A.float().repeat(b).reshape(b * h, 1), fold(B, n),
+                  fold(C, n), chunk=chunk)
+    return y.reshape(b, h, s, p).movedim(1, 2), st.reshape(b, h, n, p)
+
+
+def k6_error(torch, y, st, want_y, want_st, what: str) -> float:
+    """Hold one K6 output against the plain version's on the same inputs;
+    returns max |K6 y - plain y|.  float32: y and state within rtol = atol
+    = K6_TOL (the reference's bound).  bfloat16: y within K6_BF16_REL x
+    max|y| plus one bfloat16 ulp of plain's y (both sum in float32 and
+    round once, in different orders); the float32 state as in float32."""
+    yf, wf = y.float(), want_y.float()
+    diff = (yf - wf).abs()
+    if y.dtype == torch.float32:
+        lim = K6_TOL + K6_TOL * wf.abs()
+    else:
+        ulp = torch.ldexp(torch.ones_like(wf), torch.frexp(wf)[1] - 8)
+        lim = K6_BF16_REL * float(wf.abs().max()) + ulp
+    if not bool((diff <= lim).all()):
+        i = int((diff - lim).argmax())
+        fail(f"K6 != plain ({what}): |diff| {float(diff.flatten()[i]):.3e} "
+             f"over its bound {float(lim.flatten()[i]):.3e} at flat index "
+             f"{i}; max |diff| {float(diff.max()):.3e}")
+    sdiff = (st - want_st).abs()
+    if not bool((sdiff <= K6_TOL + K6_TOL * want_st.abs()).all()):
+        fail(f"K6 state != plain ({what}): max |diff| "
+             f"{float(sdiff.max()):.3e}")
+    return float(diff.max())
+
+
+def ssd_vs_plain(torch, np, dev) -> None:
+    """K6 against its plain version on the card: the reference test's three
+    shapes, and b = 2, S = 1000 at mamba2-780m's and zamba2-1.2b's head
+    layouts (chunk 256: four chunks, the last ragged), float32 and
+    bfloat16 x / B / C, inputs drawn as the reference test draws them; the
+    plain version on the card against the CPU's on a few heads."""
+    from repro_torch.kernels.ssd_scan import ops
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shapes = [(1, 32, 2, 8, 1, 8, 8), (2, 80, 4, 8, 2, 16, 16),
+              (2, 100, 4, 16, 4, 8, 32)] + [
+        (2, 1000, 2 * c.d_model // c.mamba_headdim, c.mamba_headdim,
+         c.mamba_groups, c.ssm_state, c.ssd_chunk) for c in mamba_cfgs()]
+    cases, full = 0, []
+    for b, s, h, p, gr, n, chunk in shapes:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev)
+        x, B, C = rnd(b, s, h, p), rnd(b, s, gr, n), rnd(b, s, gr, n)
+        dt = torch.nn.functional.softplus(rnd(b, s, h))
+        A = -torch.exp(rnd(h))
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, Bs, Cs = (t.to(dtype) for t in (x, B, C))
+            what = f"{str(dtype)[6:]} b={b} S={s} H={h} P={p} G={gr} " \
+                   f"N={n} chunk={chunk}"
+            y, st = ops.ssd_scan(xs, dt, A, Bs, Cs, chunk=chunk)
+            want_y, want_st = ssd_plain(torch, xs, dt, A, Bs, Cs, chunk)
+            err = k6_error(torch, y, st, want_y, want_st, what)
+            cases += 1
+            if s == 1000:
+                full.append(f"{str(dtype)[6:]} H={h} N={n} {err:.3e}")
+            if s == 1000 and dtype == torch.float32:
+                # plain on the card == plain on the CPU (same cumsum order;
+                # only the matmuls' sums differ), on the first two heads
+                cpu = [t[:, :, :2].cpu() for t in (xs, dt)] + [A[:2].cpu()]
+                cy, cst = ssd_plain(torch, cpu[0], cpu[1], cpu[2],
+                                    Bs.cpu(), Cs.cpu(), chunk)
+                dy = (want_y[:, :, :2].cpu() - cy).abs()
+                if not bool((dy <= K6_TOL + K6_TOL * cy.abs()).all()) or \
+                        not torch.allclose(want_st[:, :2].cpu(), cst,
+                                           rtol=K6_TOL, atol=K6_TOL):
+                    fail(f"K6 plain on the card != plain on the CPU ({what}):"
+                         f" max |diff| {float(dy.max()):.3e}")
+    torch.cuda.synchronize()
+    print(f"K6 vs plain: {cases} cases (the reference test's three shapes "
+          f"and b=2 x S=1000 at mamba2-780m's and zamba2-1.2b's head layouts, "
+          f"float32 and bfloat16) within rtol = atol = {K6_TOL} (float32) / "
+          f"{K6_BF16_REL} x max|y| + one bfloat16 ulp (bfloat16 y); largest "
+          f"|y diff| at S=1000: {'; '.join(full)}; plain on the card within "
+          f"{K6_TOL} of the CPU's on two heads; in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def mamba_cfgs():
+    """The configs of the Mamba-2 families' paths (phases 13 and 14)."""
+    from repro_torch import configs
+    return [configs.get(a) for a in (SSM_ARCH, HYBRID_ARCH)]
+
+
+def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
+             max_len: int, reqs: list, label: str) -> dict:
+    """``Engine(quant_bits=16)`` on ``cuda`` over ``reqs``, the launch
+    counts zeroed just before the run and read just after.  Every K5 call
+    (the head) and every K6 call (each mamba layer's prefill scan) is
+    recorded and held against its plain version on the same inputs after
+    the run; every request must complete with its budget of tokens in
+    [0, vocab); K5 launches = prefills + decode ticks, K6 launches =
+    prefills x layers (0 without mamba layers).  Returns the launches, the
+    largest differences and the engine."""
+    from repro_torch.kernels.q15_matmul.kernel import Q15Matmul
+    from repro_torch.kernels.q15_matmul.kernel import plain as k5_plain
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    from repro_torch.obs import MetricsRegistry, Observability, Tracer
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    torch.cuda.reset_peak_memory_stats()
     # the engine's own spans time the run: lm.prefill and lm.decode end in
     # the sampled tokens' copy to the host, so each holds its device work
     obs = Observability(tracer=Tracer(), metrics=MetricsRegistry())
     t0 = time.perf_counter()
-    eng = Engine(cfg, params, ServeConfig(max_len=LM_MAX_LEN,
-                                          max_slots=LM_SLOTS, quant_bits=16),
+    eng = Engine(cfg, params, ServeConfig(max_len=max_len, max_slots=slots,
+                                          quant_bits=16),
                  obs=obs, device=dev)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     wq, scale = eng._head_wq, eng._head_scale
-    if tuple(wq.shape) != (HEAD_K, HEAD_N) or wq.dtype != torch.int16:
-        fail(f"engine head {tuple(wq.shape)} {wq.dtype}, want "
-             f"({HEAD_K}, {HEAD_N}) int16")
-    heads = []                      # (K5 input, K5 output) of every call
-    head = eng._head_logits
+    if tuple(wq.shape) != (cfg.d_model, cfg.vocab_size) or \
+            wq.dtype != torch.int16:
+        fail(f"{label}: engine head {tuple(wq.shape)} {wq.dtype}, want "
+             f"({cfg.d_model}, {cfg.vocab_size}) int16")
+    heads, scans = [], []       # (inputs, outputs) of every K5 / K6 call
+    head, scan = eng._head_logits, ssd_ops.ssd_scan
 
     def recorded_head(hidden):
         out = head(hidden)
         heads.append((hidden[:, -1, :].float(), out))
         return out
-    eng._head_logits = recorded_head
-    reqs = lm_requests(np, cfg.vocab_size)
-    Q15Matmul.launches = 0              # count the LM path's run only
+
+    def recorded_scan(x, dt, A, B, C, *, chunk):
+        y, st = scan(x, dt, A, B, C, chunk=chunk)
+        scans.append((x, dt, A, B, C, chunk, y, st))
+        return y, st
+    eng._head_logits, ssd_ops.ssd_scan = recorded_head, recorded_scan
+    Q15Matmul.launches = SSDScan.launches = 0   # this path's run only
     rids = [eng.submit(toks, new) for toks, new in reqs]
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = Q15Matmul.launches
+    k5, k6 = Q15Matmul.launches, SSDScan.launches
+    eng._head_logits, ssd_ops.ssd_scan = head, scan
     st = eng.stats()
     spans = obs.tracer.phase_stats()
     for rid, (toks, new) in zip(rids, reqs):
         out = eng.result(rid)
         if out.shape != (new,) or out.min() < 0 or out.max() >= cfg.vocab_size:
-            fail(f"request {rid}: {out.shape[0]} tokens in "
+            fail(f"{label}: request {rid}: {out.shape[0]} tokens in "
                  f"[{out.min()}, {out.max()}], want {new} in "
                  f"[0, {cfg.vocab_size})")
-    if st["prefills"] != LM_REQUESTS or st["tokens_generated"] != sum(
+    if st["prefills"] != len(reqs) or st["tokens_generated"] != sum(
             new for _, new in reqs):
-        fail(f"engine stats {st}")
-    if launches != st["prefills"] + st["decode_ticks"] or len(heads) != launches:
-        fail(f"K5 launches {launches}, head calls {len(heads)}, prefills + "
-             f"decode ticks {st['prefills'] + st['decode_ticks']}")
+        fail(f"{label}: engine stats {st}")
+    if k5 != st["prefills"] + st["decode_ticks"] or len(heads) != k5:
+        fail(f"{label}: K5 launches {k5}, head calls {len(heads)}, prefills "
+             f"+ decode ticks {st['prefills'] + st['decode_ticks']}")
+    want_k6 = st["prefills"] * cfg.num_layers if cfg.uses_mamba else 0
+    if k6 != want_k6 or len(scans) != k6:
+        fail(f"{label}: K6 launches {k6}, scan calls {len(scans)}, want "
+             f"prefills x layers = {want_k6}")
     if (spans["lm.prefill"]["count"], spans["lm.decode"]["count"]) != (
             st["prefills"], st["decode_ticks"]):
-        fail(f"engine spans {spans} against stats {st}")
+        fail(f"{label}: engine spans {spans} against stats {st}")
+    peak = torch.cuda.max_memory_allocated()
+    held = sum(t.numel() * t.element_size() for rec in scans for t in rec
+               if isinstance(t, torch.Tensor))
+    held += sum(t.numel() * t.element_size() for rec in heads for t in rec)
 
-    max_err, close, rows = 0.0, 0, 0
+    t0 = time.perf_counter()
+    k5_err, close, rows = 0.0, 0, 0
     for x, out in heads:
-        want = plain(x, wq, scale)
+        want = k5_plain(x, wq, scale)
         diff = (out - want).abs().amax(dim=1)
         lim = K5_REL * float(want.abs().max())
         if not float(diff.max()) <= lim:
-            fail(f"LM head: K5 vs plain max |diff| {float(diff.max()):.3e} "
-                 f"> {lim:.3e}")
+            fail(f"{label} head: K5 vs plain max |diff| "
+                 f"{float(diff.max()):.3e} > {lim:.3e}")
         top2 = want.topk(2, dim=1).values
         clear = (top2[:, 0] - top2[:, 1]) > 2 * diff
         if not torch.equal(out.argmax(1)[clear], want.argmax(1)[clear]):
-            fail("LM head: K5's argmax differs from the plain version's on "
-                 "a row whose top-2 margin exceeds twice the difference")
-        max_err = max(max_err, float(diff.max()))
+            fail(f"{label} head: K5's argmax differs from the plain "
+                 "version's on a row whose top-2 margin exceeds twice the "
+                 "difference")
+        k5_err = max(k5_err, float(diff.max()))
         close += int((~clear).sum())
         rows += x.shape[0]
-    peak = torch.cuda.max_memory_allocated()
+    k6_err = 0.0
+    while scans:
+        x, dt, A, B, C, chunk, y, sst = scans.pop()
+        want_y, want_st = ssd_plain(torch, x, dt, A, B, C, chunk)
+        k6_err = max(k6_err, k6_error(torch, y, sst, want_y, want_st,
+                                      f"{label}, S={x.shape[1]}"))
+    torch.cuda.synchronize()
+    check = time.perf_counter() - t0
     sch = st["scheduler"]
     tokens = st["tokens_generated"]
     pre, dec, tick = (spans[n] for n in ("lm.prefill", "lm.decode",
                                          "lm.tick"))
-    print(f"LM path: {LM_REQUESTS} requests (prompts "
-          f"{sum(len(t) for t, _ in reqs)} tokens, budgets "
-          f"{tokens} tokens) over {LM_SLOTS} slots, max_len {LM_MAX_LEN}, "
-          f"quant_bits 16: {st['prefills']} prefills + {st['decode_ticks']} "
-          f"decode ticks, {tokens} tokens in {wall:.3f} s = "
-          f"{tokens / wall:,.1f} tokens/s; spans lm.prefill p50 "
-          f"{pre['p50_us'] / 1e3:.3f} ms ({pre['count']}), lm.decode p50 "
+    print(f"{label}: {len(reqs)} requests (prompts "
+          f"{sum(len(t) for t, _ in reqs)} tokens, budgets {tokens} tokens) "
+          f"over {slots} slots, max_len {max_len}, quant_bits 16: "
+          f"{st['prefills']} prefills + {st['decode_ticks']} decode ticks, "
+          f"{tokens} tokens in {wall:.3f} s = {tokens / wall:,.1f} tokens/s; "
+          f"spans lm.prefill p50 {pre['p50_us'] / 1e3:.3f} ms / p99 "
+          f"{pre['p99_us'] / 1e3:.3f} ms ({pre['count']}), lm.decode p50 "
           f"{dec['p50_us'] / 1e3:.3f} ms / p99 {dec['p99_us'] / 1e3:.3f} ms "
           f"({dec['count']}), lm.tick p50 {tick['p50_us'] / 1e3:.3f} ms / "
           f"p99 {tick['p99_us'] / 1e3:.3f} ms ({tick['count']}); scheduler "
           f"admissions {sch['admissions']}, recycles {sch['recycles']}, "
           f"spills {sch['spills']}, peak active {sch['peak_active']}; "
           f"engine set-up (quantize, dequantize, head layout) {setup:.1f} s; "
-          f"peak device memory {peak:,} B ({peak / 2**30:.2f} GiB); card "
-          f"{card}")
-    print(f"LM path: K5 launched {launches} times = prefills + decode "
-          f"ticks; every head output within {K5_REL} x max|plain| of the "
-          f"plain version (largest |diff| {max_err:.3e}), argmax equal on "
-          f"every row whose top-2 margin exceeds twice its difference; "
-          f"{close} of {rows} rows fell under that margin")
-    eng._head_logits = head
-    lm_profiled_ticks(torch, np, eng, cfg.vocab_size)
-    del eng, heads
-    lm_decode_continuity(torch, np, dev, cfg, params)
-    return {"launches": launches, "max_abs_err": max_err}
+          f"peak device memory {peak:,} B ({peak / 2**30:.2f} GiB, of which "
+          f"{held / 2**30:.2f} GiB the recorded K5 / K6 inputs and outputs "
+          f"kept for the check); card {card}")
+    print(f"{label}: K5 launched {k5} times = prefills + decode ticks, every "
+          f"head output within {K5_REL} x max|plain| of the plain version "
+          f"(largest |diff| {k5_err:.3e}), argmax equal on every row whose "
+          f"top-2 margin exceeds twice its difference ({close} of {rows} "
+          f"rows under that margin); " + (
+              f"K6 launched {k6} times = prefills x {cfg.num_layers} "
+              f"layers, every output within its bound of the plain version "
+              f"(largest |y diff| {k6_err:.3e})" if cfg.uses_mamba else
+              "no mamba layer, so no K6 launch")
+          + f"; checks in {check:.1f} s")
+    return {"eng": eng, "k5": k5, "k5_err": k5_err, "k6": k6,
+            "k6_err": k6_err}
 
 
-def lm_profiled_ticks(torch, np, eng, vocab: int) -> None:
-    """A profiled steady window of the engine: 8 requests with the longest
-    prompts and budgets fill every slot, three ticks run untraced, then
-    LM_PROFILE_TICKS decode ticks (nothing admitted or released) run under
-    torch.profiler (host and device): the device's busy share of the host
-    wall time (an upper estimate of the idle share, as in phase 6), K5's
-    device time per launch and the device time by kernel.  The requests
-    are cancelled afterwards."""
+def lm_path(torch, np, dev, card) -> dict:
+    """Phase 12: the LM ``Engine`` at full Qwen2-1.5B width through its Q15
+    head (K5), every head call checked against the plain version; then the
+    same weights in float32 through the slotted decode (see
+    :func:`lm_decode_continuity`)."""
+    from repro_torch import configs
+    cfg = configs.get(LM_ARCH)
+    params = init_lm(torch, dev, cfg)
+    quantize_on_card(torch, params)
+    reqs = lm_requests(np, cfg.vocab_size, LM_REQUESTS, LM_PROMPT, LM_NEW)
+    out = serve_lm(torch, np, dev, card, cfg, params, slots=LM_SLOTS,
+                   max_len=LM_MAX_LEN, reqs=reqs, label="LM path")
+    lm_profiled_ticks(torch, np, out.pop("eng"), cfg.vocab_size,
+                      LM_PROMPT[1], LM_NEW[1], "LM profiled window")
+    lm_decode_continuity(torch, np, dev, cfg, params, (32, 57), "LM")
+    return {"launches": out["k5"], "max_abs_err": out["k5_err"]}
+
+
+def ssm_path(torch, np, dev, card) -> dict:
+    """Phase 13: mamba2-780m at full width: the engine over 24 requests
+    whose prompts cross one to four SSD chunks, K5 and K6 held against
+    their plain versions; a profiled window of decode ticks; the float32
+    slotted decode against ``forward`` over a prompt that spans two
+    chunks."""
+    from repro_torch import configs
+    cfg = configs.get(SSM_ARCH)
+    params = init_lm(torch, dev, cfg)
+    reqs = lm_requests(np, cfg.vocab_size, LM_REQUESTS, SSM_PROMPT, LM_NEW)
+    out = serve_lm(torch, np, dev, card, cfg, params, slots=LM_SLOTS,
+                   max_len=SSM_MAX_LEN, reqs=reqs, label="SSM path")
+    lm_profiled_ticks(torch, np, out.pop("eng"), cfg.vocab_size,
+                      SSM_PROMPT[1], LM_NEW[1], "SSM profiled window")
+    lm_decode_continuity(torch, np, dev, cfg, params, (57, 300), "SSM")
+    return out
+
+
+def hybrid_path(torch, np, dev, card) -> dict:
+    """Phase 14: zamba2-1.2b at full width: the engine over 8 requests on 4
+    slots, K5 and K6 held against their plain versions."""
+    from repro_torch import configs
+    cfg = configs.get(HYBRID_ARCH)
+    params = init_lm(torch, dev, cfg)
+    reqs = lm_requests(np, cfg.vocab_size, HYBRID_REQUESTS, HYBRID_PROMPT,
+                       HYBRID_NEW)
+    out = serve_lm(torch, np, dev, card, cfg, params, slots=HYBRID_SLOTS,
+                   max_len=HYBRID_MAX_LEN, reqs=reqs, label="hybrid path")
+    del out["eng"]
+    return out
+
+
+def lm_profiled_ticks(torch, np, eng, vocab: int, prompt: int, budget: int,
+                      label: str) -> None:
+    """A profiled steady window of the engine: one request per slot, each
+    with a ``prompt``-token prompt and a budget of ``budget``, fills every
+    slot; three ticks run untraced, then LM_PROFILE_TICKS decode ticks
+    (nothing admitted or released) run under torch.profiler (host and
+    device): the device's busy share of the host wall time (an upper
+    estimate of the idle share, as in phase 6), K5's device time per launch
+    and the device time by kernel.  The requests are cancelled afterwards."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(SEED + 2)
-    rids = [eng.submit(rng.integers(0, vocab, LM_PROMPT[1]).astype(np.int32),
-                       LM_NEW[1]) for _ in range(LM_SLOTS)]
+    slots = eng.scfg.max_slots
+    rids = [eng.submit(rng.integers(0, vocab, prompt).astype(np.int32),
+                       budget) for _ in range(slots)]
     for _ in range(3):
         eng.tick()
     torch.cuda.synchronize()
@@ -1647,13 +1952,13 @@ def lm_profiled_ticks(torch, np, eng, vocab: int) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     if eng.stats()["decode_ticks"] - ticks != LM_PROFILE_TICKS:
-        fail("the LM profiled window was not all decode ticks")
+        fail(f"the {label} was not all decode ticks")
     for rid in rids:
         eng.cancel(rid)
     evs = device_events(prof)
     if not evs:
-        print("LM profiled window: the trace holds no device event, so the "
-              "device busy share is not measured")
+        print(f"{label}: the trace holds no device event, so the device busy "
+              "share is not measured")
         return
     busy = busy_us(evs)
     by_name = {}
@@ -1661,25 +1966,37 @@ def lm_profiled_ticks(torch, np, eng, vocab: int) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     k5 = kernel_device_us(prof, "q15_matmul_kernel")
-    print(f"LM profiled window ({LM_PROFILE_TICKS} decode ticks, "
-          f"{LM_SLOTS} active slots): host wall {wall_us:.1f} us "
+    print(f"{label} ({LM_PROFILE_TICKS} decode ticks, {slots} active "
+          f"slots): host wall {wall_us:.1f} us "
           f"({wall_us / LM_PROFILE_TICKS:.1f} us per tick), device busy "
           f"{busy:.1f} us = {busy / wall_us:.2%}, idle "
           f"{1 - busy / wall_us:.2%}; {len(evs)} device events "
           f"({len(evs) / LM_PROFILE_TICKS:.0f} per tick); q15_matmul_kernel "
           f"{k5[0] if k5 else 0} launches x "
           f"{k5[1] if k5 else float('nan'):.3f} us device time")
-    print("LM profiled window device time by event (count, total us): " +
+    print(f"{label} device time by event (count, total us): " +
           "; ".join(f"{k[:60]} {n} {t:.1f}" for k, (n, t) in
                     sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]))
 
 
-def lm_decode_continuity(torch, np, dev, cfg, params) -> None:
+def cache_rows(cache, slot: int) -> dict:
+    """Clones of one slot's rows of every cache tensor (K/V, SSM state,
+    conv tails) and of its ``pos``."""
+    rows = {n: cache[n][:, slot].clone() for n in ("k", "v", "ssm")
+            if cache.get(n) is not None}
+    rows.update({f"conv.{n}": t[:, slot].clone()
+                 for n, t in cache.get("conv", {}).items()})
+    rows["pos"] = cache["pos"][slot].clone()
+    return rows
+
+
+def lm_decode_continuity(torch, np, dev, cfg, params, lens, label) -> None:
     """The full-width weights in float32 (TF32 off): a 4-slot cache, slots
-    0 and 2 admitted at 32 and 57 prompt tokens, 16 slotted decode ticks
+    0 and 2 admitted at ``lens`` prompt tokens, 16 slotted decode ticks
     with slot 2 inactive for the middle 4.  Each decode logit row must be
     within F32_DECODE_ATOL of ``forward`` on the whole sequence, and the
-    inactive and empty slots' cache rows and ``pos`` must stay bitwise."""
+    inactive and empty slots' cache rows (K/V, SSM state, conv tail) and
+    ``pos`` must stay bitwise."""
     import dataclasses
     from repro_torch.models import transformer as T
     from repro_torch.pytree import tree_map
@@ -1688,10 +2005,11 @@ def lm_decode_continuity(torch, np, dev, cfg, params) -> None:
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
-    lens, steps, idle, slots = (32, 57), 16, range(6, 10), (0, 2)
+    steps, idle, slots = 16, range(6, 10), (0, 2)
     rng = np.random.default_rng(SEED + 1)
     seqs = [rng.integers(0, cfg.vocab_size, n + steps) for n in lens]
-    cache = T.init_slot_cache(cfg32, 4, 128, dtype=torch.float32, device=dev)
+    cache = T.init_slot_cache(cfg32, 4, max(lens) + steps, dtype=torch.float32,
+                              device=dev)
     for slot, seq, n in zip(slots, seqs, lens):
         _, cache = T.prefill_into_slot(
             cfg32, p32, cache, {"tokens": torch.as_tensor(seq[None, :n],
@@ -1703,18 +2021,17 @@ def lm_decode_continuity(torch, np, dev, cfg, params) -> None:
         for j, slot in enumerate(slots):
             if active[slot]:
                 toks[slot, 0] = seqs[j][lens[j] + fed[j]]
-        keep = {s: (cache["k"][:, s].clone(), cache["v"][:, s].clone(),
-                    cache["pos"][s].clone())
-                for s in range(4) if not active[s]}
+        keep = {s: cache_rows(cache, s) for s in range(4) if not active[s]}
         logits, cache = T.decode_step_slotted(
             cfg32, p32, cache, torch.as_tensor(toks, device=dev),
             torch.as_tensor(active, device=dev))
-        for s, (k, v, pos) in keep.items():
-            if not (bits_equal(cache["k"][:, s], k)
-                    and bits_equal(cache["v"][:, s], v)
-                    and torch.equal(cache["pos"][s], pos)):
-                fail(f"f32 slotted decode: inactive slot {s} changed at "
-                     f"tick {t}")
+        for s, rows in keep.items():
+            now = cache_rows(cache, s)
+            if not all(torch.equal(now[n].reshape(-1).view(torch.uint8),
+                                   v.reshape(-1).view(torch.uint8))
+                       for n, v in rows.items()):
+                fail(f"{label} f32 slotted decode: inactive slot {s} changed "
+                     f"at tick {t}")
         for j, slot in enumerate(slots):
             if active[slot]:
                 got[j].append(logits[slot, 0])
@@ -1726,16 +2043,16 @@ def lm_decode_continuity(torch, np, dev, cfg, params) -> None:
             seqs[j][None, :n], device=dev)})
         e = float((torch.stack(got[j]) - full[0, lens[j]:n]).abs().max())
         if not e <= F32_DECODE_ATOL:
-            fail(f"f32 slotted decode vs forward (slot {slots[j]}): max "
-                 f"|diff| {e:.3e} > {F32_DECODE_ATOL}")
+            fail(f"{label} f32 slotted decode vs forward (slot {slots[j]}): "
+                 f"max |diff| {e:.3e} > {F32_DECODE_ATOL}")
         err = max(err, e)
     torch.cuda.synchronize()
-    print(f"LM f32 slotted decode at full width: slots {slots} admitted at "
-          f"{lens} prompt tokens in a 4-slot cache, {steps} ticks with slot "
-          f"2 inactive for ticks {idle.start}-{idle.stop - 1}: max |decode - "
-          f"forward| {err:.3e} <= {F32_DECODE_ATOL} over {fed[0] + fed[1]} "
-          f"logit rows of {cfg.vocab_size}; the inactive and empty slots' "
-          f"cache rows and pos bitwise unchanged; in "
+    print(f"{label} f32 slotted decode at full width: slots {slots} admitted "
+          f"at {lens} prompt tokens in a 4-slot cache, {steps} ticks with "
+          f"slot 2 inactive for ticks {idle.start}-{idle.stop - 1}: max "
+          f"|decode - forward| {err:.3e} <= {F32_DECODE_ATOL} over "
+          f"{fed[0] + fed[1]} logit rows of {cfg.vocab_size}; the inactive "
+          f"and empty slots' cache rows and pos bitwise unchanged; in "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -1762,6 +2079,7 @@ def main() -> int:
     lut_err = lut_vs_plain(torch, np, dev)
     window_err = window_vs_plain(torch, np, dev)
     q15_vs_plain(torch, np, dev)
+    ssd_vs_plain(torch, np, dev)
     launches, eng, feeds, art, events = main_path(torch, np, dev)
     profiled_window(torch, eng, feeds)
     sw = eng.kernel.sw
@@ -1782,6 +2100,10 @@ def main() -> int:
     t = timing(torch, sw, art)
     del feeds, art
     lm = lm_path(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    ssm = ssm_path(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    hybrid_path(torch, np, dev, card)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"
     rows = [("q15_step", f"{src}:119", launches, max_err),
             ("q15_step_dense", f"{src}:146", k2["launches"], dense_err),
@@ -1789,7 +2111,9 @@ def main() -> int:
             ("lut_act", "src/repro/kernels/lut_act/kernel.py:25",
              k4_launches, lut_err),
             ("q15_matmul", "src/repro/kernels/q15_matmul/kernel.py:26",
-             lm["launches"], lm["max_abs_err"])]
+             lm["launches"], lm["max_abs_err"]),
+            ("ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:23",
+             ssm["k6"], ssm["k6_err"])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,

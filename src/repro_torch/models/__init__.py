@@ -1,2 +1,3 @@
-"""The LM zoo (reference ``repro.models``): ``layers``, ``attention`` and
-``transformer`` for the ``dense`` family."""
+"""The LM zoo (reference ``repro.models``): ``layers``, ``attention``,
+``mamba2`` and ``transformer`` for the ``dense``, ``ssm`` and ``hybrid``
+families."""

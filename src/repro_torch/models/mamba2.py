@@ -1,0 +1,243 @@
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) block (reference
+``repro.models.mamba2``).
+
+The chunked SSD formulation: within chunks of Q rows the recurrence is a
+masked, decay-weighted attention-like product; across chunks a sequential
+recurrence carries the (H, N, P) state.  :func:`ssd_chunked` is the
+reference's own scan in PyTorch and the oracle of the SSD scan kernel
+(``kernels/ssd_scan``); :func:`mamba_apply` takes the scan as
+``ssm_impl`` (default :func:`ssd_chunked`), and the LM assembly passes
+the kernel's entry point ``kernels.ssd_scan.ops.ssd_scan`` there.
+
+The input projection is stored as five column blocks (z, x, B, C, dt) and
+the depthwise conv as three (x, B, C), as in the reference.
+
+Shapes: x (B, S, H, P) with H * P = d_inner; dt (B, S, H); A (H,)
+negative; B, C (B, S, G, N), G groups broadcast over H // G heads each;
+the state (B, H, N, P).  The sequence-parallel block (``mamba_apply_seq``)
+belongs with meshes and training (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import layers as L
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int = 256, h0=None):
+    """Returns (y (B, S, H, P) in x's dtype, final state (B, H, N, P)
+    float32).  As the reference: S zero-padded to a multiple of the chunk,
+    the intra-chunk product taken over M cast to x's dtype, and the
+    intra- and inter-chunk terms each rounded to x's dtype before their
+    sum."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    if pad:
+        zf = lambda t: F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+        x, dt, B, C = zf(x), zf(dt), zf(B), zf(C)
+    sp = s + pad
+    nc = sp // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    Bc = B.reshape(b, nc, chunk, g, n)
+    Cc = C.reshape(b, nc, chunk, g, n)
+
+    dA = dtc * A.float()                                 # (b,nc,Q,h)
+    cs = torch.cumsum(dA, dim=2)
+    # the decay L[i,j] = exp(cs_i - cs_j) for i >= j, clamped before the
+    # exp where i < j (cs_i - cs_j > 0 there and would overflow)
+    li = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (b,nc,Q,Q,h)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()
+    li = torch.where(mask[None, None, :, :, None], li,
+                     torch.full_like(li, -1e30))
+    ldec = torch.exp(li)
+
+    Bh = Bc.repeat_interleave(rep, dim=3).float()        # (b,nc,Q,h,n)
+    Ch = Cc.repeat_interleave(rep, dim=3).float()
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+    M = scores * ldec * dtc[:, :, None, :, :]            # weight by dt_j
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", M.to(x.dtype).float(),
+                          xc.float()).to(x.dtype)
+
+    # chunk-final states: S_c[h,n,p] = sum_j exp(cs_last - cs_j) dt_j B_j x_j
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)      # (b,nc,Q,h)
+    dBx = torch.einsum("bcjh,bcjhn,bcjhp->bchnp", decay_to_end * dtc, Bh,
+                       xc.float())
+
+    # the inter-chunk recurrence, in order over the chunks
+    chunk_decay = torch.exp(cs[:, :, -1, :])             # (b,nc,h)
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(state)                            # state BEFORE chunk
+        state = chunk_decay[:, c, :, None, None] * state + dBx[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                # (b,nc,h,n,p)
+
+    # inter-chunk contribution: y_off_i = C_i . (exp(cs_i) * H_prev)
+    y_off = torch.einsum("bcihn,bcih,bchnp->bcihp", Ch, torch.exp(cs),
+                         h_prevs).to(x.dtype)
+    y = (y_diag + y_off).reshape(b, sp, h, p)[:, :s]
+    return y, state
+
+
+def ssd_decode_step(state, x, dt, A, B, C):
+    """One-token SSD update.  state: (B, H, N, P); x: (B, H, P); dt: (B,
+    H); B, C: (B, G, N).  Returns (y (B, H, P) in x's dtype, new state)."""
+    h, g = x.shape[1], B.shape[1]
+    rep = h // g
+    Bh = B.repeat_interleave(rep, dim=1).float()          # (B,H,N)
+    Ch = C.repeat_interleave(rep, dim=1).float()
+    dtf = dt.float()
+    dec = torch.exp(dtf * A.float())                      # (B,H)
+    upd = torch.einsum("bh,bhn,bhp->bhnp", dtf, Bh, x.float())
+    new_state = dec[:, :, None, None] * state + upd
+    y = torch.einsum("bhn,bhnp->bhp", Ch, new_state)
+    return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# Full Mamba-2 block: [z|x|B|C|dt]_proj -> conv(x,B,C) -> SSD -> gated norm
+# -> out_proj
+# ---------------------------------------------------------------------------
+
+CONV_W = 4
+
+
+def mamba_dims(cfg):
+    """(d_inner, head dim P, heads H, groups G, state size N)."""
+    d_inner = 2 * cfg.d_model
+    headdim = cfg.mamba_headdim
+    return d_inner, headdim, d_inner // headdim, cfg.mamba_groups, \
+        cfg.ssm_state
+
+
+def mamba_init(generator: torch.Generator, cfg, dtype=torch.float32) -> dict:
+    """The reference's leaves, shapes and dtypes, drawn from ``generator``
+    on its device: the projections at ``dense_init``'s default std (float32
+    at least, ROADMAP C2), the conv weights truncated normal at std 0.1 in
+    ``dtype``, ``A_log = log(linspace(1, 16, H))``, ``dt_bias`` 0 and ``D``
+    1 in float32."""
+    d_inner, pdim, n_heads, g, n = mamba_dims(cfg)
+    dev = generator.device
+
+    def dense(d_in, d_out):
+        return L.dense_init(generator, d_in, d_out, dtype=dtype)
+
+    def zeros(d):
+        return torch.zeros((d,), dtype=dtype, device=dev)
+
+    return {
+        "z_proj": dense(cfg.d_model, d_inner),
+        "x_proj": dense(cfg.d_model, d_inner),
+        "B_proj": dense(cfg.d_model, g * n),
+        "C_proj": dense(cfg.d_model, g * n),
+        "dt_proj": dense(cfg.d_model, n_heads),
+        "conv_x": L.truncated_normal(generator, (CONV_W, d_inner), 0.1, dtype),
+        "conv_x_b": zeros(d_inner),
+        "conv_B": L.truncated_normal(generator, (CONV_W, g * n), 0.1, dtype),
+        "conv_B_b": zeros(g * n),
+        "conv_C": L.truncated_normal(generator, (CONV_W, g * n), 0.1, dtype),
+        "conv_C_b": zeros(g * n),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, n_heads,
+                                          dtype=torch.float32, device=dev)),
+        "dt_bias": torch.zeros((n_heads,), dtype=torch.float32, device=dev),
+        "D": torch.ones((n_heads,), dtype=torch.float32, device=dev),
+        "gn": L.rmsnorm_init(d_inner, dtype, dev),
+        "out_proj": dense(d_inner, cfg.d_model),
+    }
+
+
+def _causal_conv(u, w, b):
+    """Depthwise causal conv.  u: (B, S, C); w: (W, C).  A sum of shifted
+    products, as the reference writes it (no ``conv1d``, so no cuDNN and
+    no TF32)."""
+    W = w.shape[0]
+    up = F.pad(u, (0, 0, W - 1, 0))
+    y = sum(up[:, i:i + u.shape[1], :] * w[i] for i in range(W))
+    return y + b
+
+
+def _conv_tail(u):
+    """The last CONV_W - 1 inputs of a sequence, the decode conv's state:
+    zero rows before the sequence's start for a prompt shorter than that
+    (ROADMAP C4)."""
+    return F.pad(u, (0, 0, CONV_W - 1, 0))[:, -(CONV_W - 1):]
+
+
+def _silu(x):
+    return x * torch.sigmoid(x)               # jax.nn.silu
+
+
+def _softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))   # jax.nn.softplus
+
+
+def _projections(p, xin, compute_dtype):
+    cd = compute_dtype
+    return tuple(L.dense_apply(p[k], xin, compute_dtype=cd)
+                 for k in ("z_proj", "x_proj", "B_proj", "C_proj", "dt_proj"))
+
+
+def mamba_apply(p, xin, cfg, *, chunk: int = 256,
+                compute_dtype=torch.bfloat16, ssm_impl=ssd_chunked):
+    """Full-sequence Mamba-2 block.  xin: (B, S, D) -> (out, {"ssm": final
+    state (B, H, N, P), "conv": {"x", "B", "C"}: the last CONV_W - 1
+    pre-conv inputs (B, 3, width)})."""
+    b, s, _ = xin.shape
+    d_inner, pdim, n_heads, g, n = mamba_dims(cfg)
+    cd = compute_dtype
+    z, xr, Br, Cr, dt = _projections(p, xin, cd)
+    conv_tails = {"x": _conv_tail(xr), "B": _conv_tail(Br),
+                  "C": _conv_tail(Cr)}
+    xr = _silu(_causal_conv(xr, p["conv_x"].to(cd), p["conv_x_b"].to(cd)))
+    Br = _silu(_causal_conv(Br, p["conv_B"].to(cd), p["conv_B_b"].to(cd)))
+    Cr = _silu(_causal_conv(Cr, p["conv_C"].to(cd), p["conv_C_b"].to(cd)))
+    x = xr.reshape(b, s, n_heads, pdim)
+    B = Br.reshape(b, s, g, n)
+    C = Cr.reshape(b, s, g, n)
+    dt = _softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, state = ssm_impl(x, dt, A, B, C, chunk=chunk)
+    y = y + p["D"].to(cd)[None, None, :, None] * x
+    y = y.reshape(b, s, d_inner)
+    y = L.rmsnorm_apply(p["gn"], y * _silu(z), cfg.norm_eps)
+    out = L.dense_apply(p["out_proj"], y, compute_dtype=cd)
+    return out, {"ssm": state, "conv": conv_tails}
+
+
+def mamba_decode(p, xin, conv_state, ssm_state, cfg, *,
+                 compute_dtype=torch.bfloat16):
+    """One-token decode.  xin: (B, 1, D); conv_state: {"x", "B", "C"} of
+    (B, CONV_W - 1, width); ssm_state: (B, H, N, P).  Returns (out (B, 1, D),
+    new conv state, new ssm state); the inputs are not written."""
+    b = xin.shape[0]
+    d_inner, pdim, n_heads, g, n = mamba_dims(cfg)
+    cd = compute_dtype
+    z, xr, Br, Cr, dt = _projections(p, xin[:, 0], cd)
+
+    def conv_step(state, new, w, bias):
+        # the reference's einsum "bwc,wc->bc": products of compute-dtype
+        # values summed in float32, rounded once
+        seq = torch.cat([state.to(cd), new[:, None, :]], dim=1)
+        y = (seq.float() * w.to(cd).float()).sum(dim=1).to(cd) + bias.to(cd)
+        return _silu(y), seq[:, 1:]
+
+    xr, ncx = conv_step(conv_state["x"], xr, p["conv_x"], p["conv_x_b"])
+    Br, ncB = conv_step(conv_state["B"], Br, p["conv_B"], p["conv_B_b"])
+    Cr, ncC = conv_step(conv_state["C"], Cr, p["conv_C"], p["conv_C_b"])
+    x = xr.reshape(b, n_heads, pdim)
+    B = Br.reshape(b, g, n)
+    C = Cr.reshape(b, g, n)
+    dt = _softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    yo, new_ssm = ssd_decode_step(ssm_state, x, dt, A, B, C)
+    yo = yo + p["D"].to(cd)[None, :, None] * x
+    yo = yo.reshape(b, d_inner)
+    yo = L.rmsnorm_apply(p["gn"], yo * _silu(z), cfg.norm_eps)
+    out = L.dense_apply(p["out_proj"], yo, compute_dtype=cd)
+    return out[:, None, :], {"x": ncx, "B": ncB, "C": ncC}, new_ssm

@@ -3,8 +3,11 @@
 
 The :class:`~repro_torch.serve.scheduler.SlotScheduler` owns placement
 (slot table, pending queue, FIFO admission, recycling, counters); this
-module implements its program: per-slot KV cache rows, preallocated
-output buffers and batched sampling.
+module implements its program: per-slot cache rows (K/V for attention
+layers, SSM state and conv tail for mamba layers), preallocated output
+buffers and batched sampling.  It serves the families the LM assembly
+ports (``dense``, ``ssm``, ``hybrid``); every prefill of a mamba layer
+runs the SSD scan kernel.
 
 * **Continuous batching**: a finished sequence's slot is re-prefilled from
   the pending queue on the next tick.  The cache is a slot table
@@ -82,7 +85,7 @@ class Engine:
     def __init__(self, cfg, params, serve_cfg: ServeConfig | None = None,
                  *, obs: Observability | None = None,
                  device: str | torch.device = "cuda"):
-        T.require_dense(cfg)
+        T.require_ported(cfg)
         self.cfg = cfg
         self.scfg = scfg = serve_cfg or ServeConfig()
         self.device = dev = resolve_device(device)
@@ -222,9 +225,10 @@ class Engine:
     # ------------------------------------------------------------------
     def _admit_slot(self, slot: int, request_id: str, req: LMRequest,
                     reset: bool) -> None:
-        # No reset_cache_slot: prefill overwrites the K/V rows up to the
-        # prompt length and everything past ``pos`` is masked out, so a
-        # recycled slot cannot leak its previous occupant.
+        # No reset_cache_slot: prefill overwrites the SSM and conv rows
+        # entirely and the K/V rows up to the prompt length, and everything
+        # past ``pos`` is masked out, so a recycled slot cannot leak its
+        # previous occupant.
         batch = {"tokens": torch.as_tensor(req.tokens[None, :],
                                            device=self.device)}
         # lm.prefill and lm.decode end after sampling, whose copy to the

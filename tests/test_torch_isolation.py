@@ -82,6 +82,16 @@ eng = Engine(cfg, params, ServeConfig(max_len=16, max_slots=2,
                                       quant_bits=16), device="cpu")
 out = eng.generate(np.ones((3, 4), np.int32), max_new=3)
 assert out.shape == (3, 3) and eng.stats()["prefills"] == 3
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+for arch in ("mamba2-780m", "zamba2-1.2b"):
+    cfg = configs.reduced(configs.get(arch), compute_dtype="float32")
+    eng = Engine(cfg, T.init(cfg, torch.Generator().manual_seed(0)),
+                 ServeConfig(max_len=16, max_slots=2), device="cpu")
+    out = eng.generate(np.ones((3, 5), np.int32), max_new=3)
+    assert out.shape == (3, 3) and eng.stats()["prefills"] == 3
+y, st = ssd_scan(torch.ones(1, 5, 2, 4), torch.ones(1, 5, 2), -torch.ones(2),
+                 torch.ones(1, 5, 1, 3), torch.ones(1, 5, 1, 3), chunk=2)
+assert y.shape == (1, 5, 2, 4) and st.shape == (1, 2, 3, 4)
 assert not any(n in ("jax", "repro", "ml_dtypes")
                or n.startswith(("jax.", "repro.", "ml_dtypes."))
                for n in sys.modules if sys.modules[n])
@@ -129,6 +139,8 @@ def test_default_device_raises_without_a_card():
     from repro_torch.serve.engine import Engine
     lm_cfg = configs.reduced(configs.get("qwen2-1.5b"))
     lm_params = T.init(lm_cfg, torch.Generator().manual_seed(0))
+    ssm_cfg = configs.reduced(configs.get("mamba2-780m"))
+    ssm_params = T.init(ssm_cfg, torch.Generator().manual_seed(0))
     params = weights.random_params(0)
     qp = quantize_params(params, QuantConfig())
     sw = StepWeights.from_quantized(qp)
@@ -142,6 +154,9 @@ def test_default_device_raises_without_a_card():
                  lambda: Engine(lm_cfg, lm_params),
                  lambda: Engine(lm_cfg, lm_params, device="cuda:0"),
                  lambda: T.init_cache(lm_cfg, 1, 4),
+                 lambda: Engine(ssm_cfg, ssm_params),
+                 lambda: T.init_cache(ssm_cfg, 1, 4),
+                 lambda: T.init_slot_cache(ssm_cfg, 1, 4),
                  lambda: T.init_slot_cache(lm_cfg, 1, 4),
                  lambda: weights.lm_params_from_numpy(
                      {"w": np.zeros(2, np.float32)})):
@@ -211,13 +226,15 @@ def test_cuda_source_holds_the_numerics_contract():
             text for h, text in headers.items() if f'#include "{h}"' in src)
     assert set(sources) == {"q15_step.cu", "q15_step_dense.cu",
                             "fastgrnn_window.cu", "lut_act.cu",
-                            "q15_matmul.cu"}
+                            "q15_matmul.cu", "ssd_scan.cu"}
     for name, src in sources.items():
         needles = ["__float2int_rz", "__fmul_rn", "__fadd_rn", "__fsub_rn",
                    'extern "C"', "cudaGetLastError"]
         if name == "q15_matmul.cu":     # bf16 products, float32 sums
             needles = ["__float2bfloat16_rn", "__fmul_rn", "__fadd_rn",
                        'extern "C"', "cudaGetLastError"]
+        if name == "ssd_scan.cu":       # float32 sums, held to a tolerance
+            needles = ['extern "C"', "cudaGetLastError"]
         if name == "q15_step.cu":       # Q15 activation storage
             needles += ["__fdiv_rn", "rintf"]
         if name == "lut_act.cu":        # lerp's (x - lo) / bw, bf16 output

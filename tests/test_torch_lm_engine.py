@@ -4,7 +4,8 @@ reference's own initialised trees, carried across) and the same prompts,
 in float32 at reduced width.  Greedy generations identical for
 ``quant_bits`` 0, 8 and 16 through 4 and through 2 slots (mirror of
 ``tests/test_serve_engine.py``'s greedy and continuous-batching tests),
-with equal ``stats()``; mixed budgets, cancels, the ``eos_id`` stop, the
+with equal ``stats()``, for the ``dense`` family, and for 0 and 16 for
+mamba2-780m (``ssm``) and zamba2-1.2b (``hybrid``); mixed budgets, cancels, the ``eos_id`` stop, the
 ``obs=`` spans and counter; ``quantize_tree`` / ``dequantize_tree``
 bitwise the reference's; temperature sampling valid and seeded."""
 import functools
@@ -90,6 +91,29 @@ def test_greedy_generations_identical_to_reference(arch, quant_bits, slots):
         st = port.stats()["scheduler"]
         assert st["recycles"] == 2 and st["spills"] == 2
         assert port.stats()["prefills"] == 4
+
+
+@pytest.mark.parametrize("slots", [4, 2])
+@pytest.mark.parametrize("quant_bits", [0, 16])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_greedy_generations_identical_to_reference_mamba(arch, quant_bits,
+                                                         slots):
+    """The Mamba-2 families: every prefill's scan through the SSD scan
+    kernel's entry point (its plain version here), no slot reset on
+    admission (prefill overwrites a slot's SSM state and conv tail)."""
+    ref, port, toks = engines(arch, max_len=32, max_slots=slots,
+                              quant_bits=quant_bits)
+    margins = smallest_margin(ref)
+    want = ref.generate(toks, max_new=12)
+    got = port.generate(toks, max_new=12)
+    print(f"{arch} quant_bits={quant_bits} slots={slots}: smallest top-1 / "
+          f"top-2 logit margin of the reference's sampled rows "
+          f"{min(margins):.3e}")
+    np.testing.assert_array_equal(got, want)
+    assert port.stats() == ref.stats()
+    if slots == 2:
+        st = port.stats()["scheduler"]
+        assert st["recycles"] == 2 and st["spills"] == 2
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -218,7 +242,8 @@ def test_temperature_sampling_is_valid_and_seeded():
 
 
 def test_quantized_head_layout():
-    for arch, tied in (("qwen2-1.5b", True), ("deepseek-7b", False)):
+    for arch, tied in (("qwen2-1.5b", True), ("deepseek-7b", False),
+                       ("mamba2-780m", False), ("zamba2-1.2b", False)):
         _, _, cfg, np_params, _ = setup(arch)
         eng = Engine(cfg, weights.lm_params_from_numpy(np_params, "cpu"),
                      ServeConfig(max_len=16, max_slots=1, quant_bits=8),

@@ -1,12 +1,17 @@
-"""Port parity, the ``dense`` LM (``repro_torch.models.transformer``) for
-reduced deepseek-7b (untied head, MHA) and qwen2-1.5b (tied embeddings,
-GQA, QKV bias), in float32 on the reference's own initialised parameters:
-``forward``, ``prefill``, ``decode_step``, ``prefill_into_slot`` and
-``decode_step_slotted`` against the reference's (logits within 1e-4, the
-reference's bound in ``tests/test_decode_consistency.py``); the port's
-decode against its own forward (mirror of that file's
-``test_decode_matches_forward`` and ``test_prefill_then_decode_continuous``);
-an inactive slot kept bit for bit; every other family refused."""
+"""Port parity, the LM (``repro_torch.models.transformer``) for reduced
+deepseek-7b (``dense``, untied head, MHA), qwen2-1.5b (``dense``, tied
+embeddings, GQA, QKV bias), mamba2-780m (``ssm``) and zamba2-1.2b
+(``hybrid``: mamba layers and one shared attention + MLP block), in
+float32 on the reference's own initialised parameters: ``forward``,
+``prefill``, ``decode_step``, ``prefill_into_slot`` and
+``decode_step_slotted`` against the reference's, caches included (logits
+within 1e-4, the reference's bound in ``tests/test_decode_consistency.py``);
+the port's decode against its own forward (mirror of that file's
+``test_decode_matches_forward``, ``test_prefill_then_decode_continuous``
+and ``test_sliding_window_decode_matches_windowed_forward``); an inactive
+slot kept bit for bit; the families not ported refused.  The mamba
+layers' scans run through the SSD scan kernel's entry point, its plain
+version here."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +25,7 @@ from repro_torch import weights
 from repro_torch.models import transformer as T
 
 ATOL = 1e-4
-ARCHS = ["deepseek-7b", "qwen2-1.5b"]
+ARCHS = ["deepseek-7b", "qwen2-1.5b", "mamba2-780m", "zamba2-1.2b"]
 
 
 def setup(arch):
@@ -44,6 +49,22 @@ def tk(a):
     return torch.as_tensor(np.asarray(a))
 
 
+def cache_leaves(cache):
+    """{name: tensor} of a cache's K/V, SSM and conv tensors (each family
+    has its own subset)."""
+    out = {n: cache[n] for n in ("k", "v", "ssm")
+           if cache.get(n) is not None}
+    out.update({f"conv.{n}": t for n, t in cache.get("conv", {}).items()})
+    return out
+
+
+def close_caches(cache, jcache):
+    got, want = cache_leaves(cache), cache_leaves(jcache)
+    assert set(got) == set(want)
+    for name in got:
+        close(got[name], want[name])
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_and_prefill_match_reference(arch):
     jcfg, jp, cfg, p, toks = setup(arch)
@@ -54,15 +75,13 @@ def test_forward_and_prefill_match_reference(arch):
     assert got.dtype == torch.float32 and got.shape == (2, 12,
                                                         cfg.vocab_size)
     close(got, want)
-    close(caches["k"], jcaches["k"])
-    close(caches["v"], jcaches["v"])
+    close_caches(caches, jcaches)
     assert float(aux["aux_loss"]) == 0.0
     want, jcache = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :7])},
                               max_len=16)
     got, cache = T.prefill(cfg, p, {"tokens": tk(toks[:, :7])}, max_len=16)
     close(got, want)
-    close(cache["k"], jcache["k"])
-    close(cache["v"], jcache["v"])
+    close_caches(cache, jcache)
     assert cache["len"] == int(jcache["len"]) == 7
 
 
@@ -80,7 +99,7 @@ def test_decode_step_matches_reference_and_forward(arch):
         got, cache = T.decode_step(cfg, p, cache, tk(toks[:, t:t + 1]))
         close(got, want)
         close(got[:, 0], full[:, t].numpy())
-    close(cache["k"], jcache["k"])
+    close_caches(cache, jcache)
     assert cache["len"] == int(jcache["len"]) == toks.shape[1]
 
 
@@ -131,8 +150,7 @@ def test_slotted_prefill_and_decode_match_reference(arch):
                                                device="cpu"))
     for g, w in zip(got, want):
         close(g, w)
-    close(cache["k"], jcache["k"])
-    close(cache["v"], jcache["v"])
+    close_caches(cache, jcache)
     assert cache["pos"].tolist() == np.asarray(jcache["pos"]).tolist() \
         == [10, 0, 11]
 
@@ -169,27 +187,67 @@ def test_inactive_slot_is_kept_bit_for_bit(arch):
     for slot in (0, 1):
         _, cache = T.prefill_into_slot(
             cfg, p, cache, {"tokens": tk(toks[slot:slot + 1, :6])}, slot)
-    before = {k: cache[k].clone() for k in ("k", "v", "pos")}
+    before = {n: t.clone() for n, t in cache_leaves(cache).items()}
     _, cache = T.decode_step_slotted(cfg, p, cache, tk([[3], [4]]),
                                      tk([True, False]))
-    for name in ("k", "v"):
-        assert torch.equal(cache[name][:, 1].view(torch.int32),
-                           before[name][:, 1].view(torch.int32))
-        assert not torch.equal(cache[name][:, 0], before[name][:, 0])
+    for name, t in cache_leaves(cache).items():
+        assert torch.equal(t[:, 1].view(torch.int32),
+                           before[name][:, 1].view(torch.int32)), name
+        assert not torch.equal(t[:, 0], before[name][:, 0]), name
     assert cache["pos"].tolist() == [7, 6]
-    # a row whose fill level is past the cache writes nothing either
-    cache["pos"][1] = 16
-    before = cache["k"].clone()
-    _, cache = T.decode_step_slotted(cfg, p, cache, tk([[3], [4]]))
-    assert torch.equal(cache["k"][:, 1], before[:, 1])
-    # and reset_cache_slot zeroes one slot only
+    if "k" in cache:
+        # a row whose fill level is past the K/V cache writes no K/V either
+        cache["pos"][1] = 16
+        before = cache["k"].clone()
+        _, cache = T.decode_step_slotted(cfg, p, cache, tk([[3], [4]]))
+        assert torch.equal(cache["k"][:, 1], before[:, 1])
+    # and reset_cache_slot zeroes one slot's rows only (SSM and conv too)
     cache = T.reset_cache_slot(cfg, cache, 1)
-    assert not cache["k"][:, 1].any() and int(cache["pos"][1]) == 0
-    assert cache["k"][:, 0].any()
+    assert int(cache["pos"][1]) == 0
+    for name, t in cache_leaves(cache).items():
+        assert not t[:, 1].any() and t[:, 0].any(), name
+
+
+def test_sliding_window_decode_matches_windowed_forward():
+    """Mirror of the reference's test on zamba2-1.2b (the shared block's
+    attention over a window of 4): the port's windowed forward against the
+    reference's, and its decode, plain and slotted, against that forward."""
+    jcfg, jp, cfg, p, toks = setup("zamba2-1.2b")
+    w = 4
+    want, _, _ = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                            window=w)
+    full, _, _ = T.forward(cfg, p, {"tokens": tk(toks)}, window=w)
+    close(full, want)
+    cache = T.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    for t in range(toks.shape[1]):
+        lg, cache = T.decode_step(cfg, p, cache, tk(toks[:, t:t + 1]),
+                                  window=w)
+        close(lg[:, 0], full[:, t].numpy())
+    cache = T.init_slot_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    for slot in (0, 1):
+        _, cache = T.prefill_into_slot(
+            cfg, p, cache, {"tokens": tk(toks[slot:slot + 1, :6])}, slot,
+            window=w)
+    for t in range(6, toks.shape[1]):
+        lg, cache = T.decode_step_slotted(cfg, p, cache, tk(toks[:, t:t + 1]),
+                                          window=w)
+        close(lg[:, 0], full[:, t].numpy())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_prompt_shorter_than_the_conv_continues_forward(arch):
+    """A 2-token prompt (shorter than the conv's 3-sample state) prefilled,
+    then decoded: the logits follow the forward pass (ROADMAP C4: the
+    reference keeps a 2-row conv state there)."""
+    _, _, cfg, p, toks = setup(arch)
+    full, _, _ = T.forward(cfg, p, {"tokens": tk(toks)})
+    _, cache = T.prefill(cfg, p, {"tokens": tk(toks[:, :2])}, max_len=16)
+    for t in range(2, 8):
+        lg, cache = T.decode_step(cfg, p, cache, tk(toks[:, t:t + 1]))
+        close(lg[:, 0], full[:, t].numpy())
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "moonshot-v1-16b-a3b",
-                                  "mamba2-780m", "zamba2-1.2b",
                                   "internvl2-76b", "hubert-xlarge"])
 def test_other_families_are_refused(arch):
     cfg = C.reduced(C.get(arch))
