@@ -2,7 +2,10 @@
 """Drive the PyTorch/CUDA port's serving, window and LM paths on one CUDA
 card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k5-parent TREE]
+
+(``--k5-parent``: also time the K5 of another checkout, e.g. the parent
+commit unpacked by ``git archive``, beside this one on the same card.)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -32,9 +35,13 @@ Phases (any failure exits non-zero; nothing is caught):
    at B = 131,072 windows x T = 128 (low and full rank, the plain scan on
    the card against the CPU's on 4,096 rows), its runtime-width code at
    H = 12, d = 5.  Then K5 vs ``kernels.q15_matmul.kernel.plain`` for
-   int16 and int8 weights at the LM head's shape (8 x 1536 x 151,936),
-   on every shape of the reference's ``tests/test_kernels.py`` and on
-   (3, 1000, 1001) for the tails: within 1e-5 x max|plain| of the plain
+   int16 and int8 weights at every plan of its launcher (16-byte, 8-byte
+   or scalar weight loads; one or two column tiles per warp; the launcher
+   reports each case's, and all eight must run): the
+   three LM heads at M = 1, their engine's slots, 9 and 64, every shape of
+   the reference's ``tests/test_kernels.py``, (3, 1000, 1001), a ragged K
+   and N, K = 0, K = 4,100, and weight views off 16-byte alignment:
+   within 1e-5 x max|plain| of the plain
    version and within 2e-2 of the float32 oracle ``q15_matmul_ref``; its
    bfloat16 output bitwise equal to its float32 output rounded to
    bfloat16, and within 1e-5 x max|plain| plus one bfloat16 ulp of the
@@ -92,10 +99,15 @@ Phases (any failure exits non-zero; nothing is caught):
     sleep, after warm-up, over input sets larger than L2; the profiler's
     device time and the host's enqueue cost beside them; each kernel's
     bound (bytes over 3.35 TB/s or fp32 instructions over 33.5 T/s).
-    K5 at the LM head's shape, int16 and int8 weights (two input sets of
-    467 MB), with ``torch.mm`` of the bfloat16 x against the same weights
+    K5 at each LM path's head and rows (Qwen2-1.5B's 8 x 1536 x 151,936
+    in int16 and int8, and its prefill's M = 1; mamba2-780m's 8 x 1536 x
+    50,280; zamba2-1.2b's 4 x 2048 x 32,000; weight sets past L2), with
+    ``torch.mm`` of the bfloat16 x against the same weights
     converted to bfloat16 beforehand as the library yardstick of its bytes
-    (not the same function: no integer weights, no scale).  K6 at b = 1 x
+    (not the same function: no integer weights, no scale); its
+    operations count as bfloat16 tensor-core FLOP over 989 T/s, and with
+    ``--k5-parent`` the other checkout's K5 runs in turns beside it
+    (parent, K5, then K5, parent).  K6 at b = 1 x
     S = 1000 at mamba2-780m width in bfloat16 (four input sets of 31 MB),
     bound by the least operations of the scan at any chunk length (no
     library call computes the scan).
@@ -173,6 +185,7 @@ FO_CRASHES = ((7, "mid_dispatch", 1), (13, "pre_tick", 2),
 PROFILE_WARM = 10         # untraced ticks before the profiled window
 PROFILE_TICKS = 20        # ticks in the profiled steady window
 TIMING_SETS = 8           # input sets cycled by the timing phase (> L2)
+L2_BYTES = 50 * 2**20     # H100 L2 (data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # fp32 instructions per second outside the tensor cores: the data sheet's
 # 67 TFLOP/s counts an FMA as two operations, so one instruction (an FMA,
@@ -191,7 +204,6 @@ WARMUP_WINDOWS = 100      # Sec. VI-A: windows characterized (paper: 100)
 MIN_K3_AGREEMENT = 0.999  # K3 windows whose prediction equals the K1 path's
 MIN_FP32_AGREEMENT = 0.97  # FP32 + K4 LUT path vs the K1 path (reference)
 LM_ARCH = "qwen2-1.5b"    # the LM path's model, at full width
-HEAD_K, HEAD_N = 1536, 151_936  # its (d_model, vocab) integer head
 LM_SLOTS = 8              # engine slots (the decode head's M)
 LM_MAX_LEN = 512
 LM_REQUESTS = 24          # three times the slots: admission, recycling, spills
@@ -568,44 +580,91 @@ def k5_error(torch, got, x, wq, scale, what: str) -> float:
     return err
 
 
+def k5_heads():
+    """(d_model, vocab) of the integer head of each LM path's model."""
+    from repro_torch import configs
+    return {a: (configs.get(a).d_model, configs.get(a).vocab_size)
+            for a in (LM_ARCH, SSM_ARCH, HYBRID_ARCH)}
+
+
+# every kernel K5's launcher can plan, by weight type: (how a lane loads a
+# row of the weights, column tiles per warp)
+K5_PLANS = {"int16": {("16-byte", 1), ("16-byte", 2), ("scalar", 1)},
+            "int8": {("16-byte", 1), ("16-byte", 2), ("8-byte", 1),
+                     ("8-byte", 2), ("scalar", 1)}}
+
+
 def q15_vs_plain(torch, np, dev) -> None:
-    """K5 against its plain version and the oracle at the LM head's shape
-    and the reference test's shapes, int16 and int8; its bfloat16 output;
-    leading dims through ``ops.q15_matmul``.  (The kernels line reports
-    the LM path's own largest |K5 - plain|.)"""
+    """K5 against its plain version and the oracle, int16 and int8, float32
+    and bfloat16 output, at every plan its launcher has: the three LM
+    heads at the rows the engine gives them (prefill M = 1, zamba2's M = 4,
+    the 8 slots) and past one tile of rows (M = 9, 64); the reference
+    test's shapes; a ragged K and N, K = 0, a K past 2,048; weight views
+    whose data pointer is off 16-byte alignment; leading dims through
+    ``ops.q15_matmul``.  Fails unless the cases ran every plan of
+    ``K5_PLANS``.  (The kernels line reports the LM path's own largest
+    |K5 - plain|.)"""
     from repro_torch.kernels.q15_matmul import ops
     from repro_torch.kernels.q15_matmul.kernel import Q15Matmul, plain
     mm = Q15Matmul()
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     scale = ops.as_scale(0.0021, dev)
-    head_err = 0.0
-    shapes = [(LM_SLOTS, HEAD_K, HEAD_N), (1, HEAD_K, HEAD_N), (8, 32, 16),
-              (64, 96, 130), (200, 256, 128), (1, 128, 256),
-              (3, 1000, 1001)]
-    for dtype, hi in ((torch.int16, 30000), (torch.int8, 120)):
+    heads = k5_heads()
+    (qk, qn), (mk, mn), (zk, zn) = (heads[a] for a in (LM_ARCH, SSM_ARCH,
+                                                        HYBRID_ARCH))
+    reached = {"int16": set(), "int8": set()}
+    errs = {"head": 0.0}
+
+    def check(m, k, n, dtype, off_bytes=0):
+        hi = 30000 if dtype == torch.int16 else 120
+        name = str(dtype)[6:]
+        off = off_bytes * 8 // torch.iinfo(dtype).bits
+        x = torch.randn(m, k, generator=g, device=dev)
+        buf = torch.randint(-hi, hi, (k * n + off,), generator=g,
+                            device=dev).to(dtype)
+        wq = buf[off:].view(k, n)
+        what = f"{name} {m}x{k}x{n}" + (
+            f", weights {off_bytes} B off 16-byte alignment" if off else "")
+        reached[name].add(mm.plan(wq, m))
+        got = mm(x, wq, scale)
+        err = k5_error(torch, got, x, wq, scale, what)
+        if (k, n) in ((qk, qn), (mk, mn), (zk, zn)) and not off:
+            errs["head"] = max(errs["head"], err)
+        bf = mm(x, wq, scale, out_dtype=torch.bfloat16)
+        if not torch.equal(bf.view(torch.int16),
+                           got.to(torch.bfloat16).view(torch.int16)):
+            fail(f"K5 bfloat16 output != its float32 output rounded "
+                 f"({what})")
+        # the float32 bound plus one bfloat16 rounding step of plain's
+        pb = plain(x, wq, scale, out_dtype=torch.bfloat16).float()
+        ulp = torch.ldexp(torch.ones_like(pb), torch.frexp(pb)[1] - 8)
+        lim = K5_REL * float(plain(x, wq, scale).abs().max()) + ulp
+        if not bool(((bf.float() - pb).abs() <= lim).all()):
+            fail(f"K5 bfloat16 output off the plain version's by more "
+                 f"than {K5_REL} x max|plain| + one bfloat16 ulp "
+                 f"({what})")
+
+    shapes = [(LM_SLOTS, qk, qn), (1, qk, qn), (64, qk, qn),
+              (LM_SLOTS, mk, mn), (1, mk, mn), (9, mk, mn),
+              (HYBRID_SLOTS, zk, zn), (1, zk, zn), (64, zk, zn),
+              (8, 32, 16), (64, 96, 130), (200, 256, 128), (1, 128, 256),
+              (3, 1000, 1001), (9, 40, 72), (4, 4100, 96), (2, 0, 64)]
+    # (M, K, N, bytes off 16-byte alignment: int16, int8)
+    views = [(LM_SLOTS, mk, mn, (2, 1)), (HYBRID_SLOTS, zk, zn, (8, 8)),
+             (9, 40, 72, (6, 8))]
+    n_cases = 0
+    for dtype in (torch.int16, torch.int8):
         for m, k, n in shapes:
-            x = torch.randn(m, k, generator=g, device=dev)
-            wq = torch.randint(-hi, hi, (k, n), generator=g,
-                               device=dev).to(dtype)
-            what = f"{str(dtype)[6:]} {m}x{k}x{n}"
-            got = mm(x, wq, scale)
-            err = k5_error(torch, got, x, wq, scale, what)
-            if (k, n) == (HEAD_K, HEAD_N):
-                head_err = max(head_err, err)
-            bf = mm(x, wq, scale, out_dtype=torch.bfloat16)
-            if not torch.equal(bf.view(torch.int16),
-                               got.to(torch.bfloat16).view(torch.int16)):
-                fail(f"K5 bfloat16 output != its float32 output rounded "
-                     f"({what})")
-            # the float32 bound plus one bfloat16 rounding step of plain's
-            pb = plain(x, wq, scale, out_dtype=torch.bfloat16).float()
-            ulp = torch.ldexp(torch.ones_like(pb), torch.frexp(pb)[1] - 8)
-            lim = K5_REL * float(plain(x, wq, scale).abs().max()) + ulp
-            if not bool(((bf.float() - pb).abs() <= lim).all()):
-                fail(f"K5 bfloat16 output off the plain version's by more "
-                     f"than {K5_REL} x max|plain| + one bfloat16 ulp "
-                     f"({what})")
+            check(m, k, n, dtype)
+        for m, k, n, offs in views:
+            check(m, k, n, dtype, offs[dtype == torch.int8])
+        n_cases += len(shapes) + len(views)
+    for name, want in K5_PLANS.items():
+        if reached[name] != want:
+            fail(f"K5 {name}: plans reached {sorted(reached[name])}, want "
+                 f"{sorted(want)}")
+    for dtype, hi in ((torch.int16, 30000), (torch.int8, 120)):
         x = torch.randn(2, 5, 64, generator=g, device=dev)
         wq = torch.randint(-hi, hi, (64, 32), generator=g,
                            device=dev).to(dtype)
@@ -615,13 +674,18 @@ def q15_vs_plain(torch, np, dev) -> None:
         k5_error(torch, out.reshape(10, 32), x.reshape(10, 64), wq, scale,
                  f"{str(dtype)[6:]} (2, 5, 64) through ops")
     torch.cuda.synchronize()
-    print(f"K5 vs plain: int16 and int8 on {len(shapes)} shapes (the head's "
-          f"{LM_SLOTS}x{HEAD_K}x{HEAD_N} and 1x{HEAD_K}x{HEAD_N}, the "
-          f"reference test's four, 3x1000x1001) within {K5_REL} x max|plain| "
-          f"(largest |diff| at the head {head_err:.3e}) and {K5_REF_REL} of "
-          f"q15_matmul_ref; bfloat16 output = float32 output rounded, within "
-          f"that bound + one bfloat16 ulp of plain's; lead dims (2, 5, 64) "
-          f"through ops; in "
+    print(f"K5 vs plain: int16 and int8, float32 and bfloat16 output, "
+          f"{n_cases} cases: the heads {qk}x{qn} (M 1, "
+          f"{LM_SLOTS}, 64), {mk}x{mn} (M 1, {LM_SLOTS}, 9) and {zk}x{zn} "
+          f"(M 1, {HYBRID_SLOTS}, 64), the reference test's four, "
+          f"3x1000x1001, 9x40x72, 4x4100x96, 2x0x64, {len(views)} weight "
+          f"views off 16-byte alignment each; plans reached (load, tiles "
+          f"per warp): int16 {sorted(reached['int16'])}, int8 "
+          f"{sorted(reached['int8'])}; within {K5_REL} x max|plain| "
+          f"(largest |diff| at the heads {errs['head']:.3e}) and "
+          f"{K5_REF_REL} of q15_matmul_ref; bfloat16 output = float32 "
+          f"output rounded, within that bound + one bfloat16 ulp of "
+          f"plain's; lead dims (2, 5, 64) through ops; in "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -1338,7 +1402,33 @@ def queued(torch, fn, sets, n: int, warm: int, cycles_per_ms: float):
     return a.elapsed_time(b) / n, host_ms, prefilled
 
 
-def timing_jobs(torch, sw, art) -> dict:
+def parent_k5(torch, tree):
+    """K5 built from ``<tree>/src/repro_torch/csrc/q15_matmul.cu`` (another
+    checkout, e.g. the parent commit's) with this checkout's nvcc flags,
+    behind this checkout's wrapper, for timing beside this K5 on the same
+    card; None without a tree."""
+    if tree is None:
+        return None
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.q15_matmul import kernel
+    src = os.path.join(tree, "src", "repro_torch", "csrc", "q15_matmul.cu")
+    lib = _build.BUILD_DIR / "libq15_matmul_parent.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    src], check=True, capture_output=True)
+    c = ctypes.CDLL(str(lib))          # the same C interface, no plan query
+    c.q15_matmul_launch.argtypes = kernel._ARGTYPES
+    c.q15_matmul_launch.restype = ctypes.c_int
+    c.q15_matmul_error_string.argtypes = [ctypes.c_int]
+    c.q15_matmul_error_string.restype = ctypes.c_char_p
+
+    class ParentK5(kernel.Q15Matmul):
+        _lib = c
+    return ParentK5()
+
+
+def timing_jobs(torch, sw, art, k5_parent) -> dict:
     """Every kernel at its main path's shapes, with its plain version, its
     input sets (together past the 50 MB L2), its call counts (kernel n,
     warm-up; plain n, warm-up) and the bytes and fp32 instructions its
@@ -1384,31 +1474,54 @@ def timing_jobs(torch, sw, art) -> dict:
             counts=(50, 5, 10, 2),
             bytes=2 * n * torch.finfo(dtype).bits // 8, ops=4 * n,
             what=f"tanh nearest over {n} {str(dtype)[6:]} values")
-    # K5 at the LM head's shape; two weight sets of 467 MB (int16) pass L2
+    # K5 at each LM path's head, at the rows the path launches it with (the
+    # kernels line's row: the Qwen head's decode, 8 x 1536 x 151,936); each
+    # job's weight sets pass L2 together
     from repro_torch.kernels.q15_matmul.kernel import Q15Matmul, plain
-    mm = Q15Matmul()
-    m, k, n = LM_SLOTS, HEAD_K, HEAD_N
+    mm, parent = Q15Matmul(), parent_k5(torch, k5_parent)
+    heads = k5_heads()
     scale = torch.tensor(0.0021, device=dev)
-    for name, dtype, hi in (("q15_matmul", torch.int16, 30000),
-                            ("q15_matmul int8", torch.int8, 120)):
-        msets = [(torch.randn(m, k, generator=g, device=dev),
-                  torch.randint(-hi, hi, (k, n), generator=g,
-                                device=dev).to(dtype), scale)
-                 for _ in range(2)]
+    qwen = {}
+    for name, arch, m, dtype in (
+            ("q15_matmul", LM_ARCH, LM_SLOTS, torch.int16),
+            ("q15_matmul int8", LM_ARCH, LM_SLOTS, torch.int8),
+            ("q15_matmul prefill", LM_ARCH, 1, torch.int16),
+            ("q15_matmul mamba2", SSM_ARCH, LM_SLOTS, torch.int16),
+            ("q15_matmul zamba2", HYBRID_ARCH, HYBRID_SLOTS, torch.int16)):
+        k, n = heads[arch]
+        size = torch.iinfo(dtype).bits // 8
+        hi = 30000 if dtype == torch.int16 else 120
+        nsets = max(2, -(-2 * L2_BYTES // (size * k * n)))
+        ws = qwen.get(dtype) if arch == LM_ARCH else None
+        if ws is None:
+            ws = [torch.randint(-hi, hi, (k, n), generator=g,
+                                device=dev).to(dtype) for _ in range(nsets)]
+            if arch == LM_ARCH:
+                qwen[dtype] = ws
+        msets = [(torch.randn(m, k, generator=g, device=dev), w, scale)
+                 for w in ws]
         # the yardstick: torch.mm of bf16 x against the same weights in
         # bf16 (2 bytes a weight), converted once beforehand
         bsets = [(x.to(torch.bfloat16), w.to(torch.bfloat16))
                  for x, w, _ in msets]
-        size = torch.iinfo(dtype).bits // 8
+        plan = mm.plan(ws[0], m)
         jobs[name] = dict(
             kernel=mm, plain=plain, sets=msets,
             counts=(100, 10, 10, 2), library=torch.mm, library_sets=bsets,
             bytes=4 * m * k + size * k * n + 4 + 4 * m * n,
-            # one FMA per product (a product of two bfloat16 values is
-            # exact in float32, so a fused add rounds as the separate one
-            # does) and one multiply by the scale per output
-            ops=m * k * n + m * n,
-            what=f"M={m} x K={k} x N={n}, {str(dtype)[6:]} weights")
+            # products of two bfloat16 values on the tensor cores, float32
+            # sums; one multiply by the scale per output beside them
+            ops=2 * m * k * n,
+            ops_ms=max(2 * m * k * n / BF16_FLOP_PER_S,
+                       m * n / FP32_OPS_PER_S) * 1e3,
+            ops_what=f"{2 * m * k * n} bfloat16 tensor-core FLOP over 989 "
+                     f"T/s (the {m * n} scale multiplies over 33.5 T/s "
+                     f"beside them)",
+            what=f"M={m} x K={k} x N={n}, {str(dtype)[6:]} weights ({arch} "
+                 f"head; plan: {plan[0]} loads, {plan[1]} column tile(s) "
+                 f"per warp)")
+        if parent is not None:
+            jobs[name]["parent"] = parent
     # K6 at the SSM path's prefill shape: b = 1 x S = K6_TIMING_S tokens at
     # mamba2-780m width, bfloat16 x / B / C (the engine's compute dtype) in
     # the kernel's per-head layout (the one group of B and C broadcast over
@@ -1476,7 +1589,7 @@ def ssd_least_work(h, g, s, p, n) -> tuple:
     return best
 
 
-def timing(torch, sw, art) -> dict:
+def timing(torch, sw, art, k5_parent=None) -> dict:
     """Per-call times of every kernel and of its plain version at the
     shapes of its main path, side by side in one process: device time of
     calls queued behind a sleep (CUDA events) and the host's enqueue cost
@@ -1487,17 +1600,27 @@ def timing(torch, sw, art) -> dict:
     the reverse order."""
     from torch.profiler import ProfilerActivity, profile
 
-    jobs = timing_jobs(torch, sw, art)
+    jobs = timing_jobs(torch, sw, art, k5_parent)
     cycles_per_ms = sleep_rate(torch)
     kern = {n: [] for n in jobs}
     plain = {n: [] for n in jobs}
     lib = {n: [] for n in jobs if "library" in jobs[n]}
+    par = {n: [] for n in jobs if "parent" in jobs[n]}
     order = list(jobs)
-    for names in (order, order[::-1]):
+    for first, names in ((True, order), (False, order[::-1])):
         for n in names:
             nk, wk, _, _ = jobs[n]["counts"]
-            kern[n].append(queued(torch, jobs[n]["kernel"], jobs[n]["sets"],
-                                  nk, wk, cycles_per_ms))
+            # parent, kernel in the first round; kernel, parent in the second
+            for who in (("parent", "kernel") if first else
+                        ("kernel", "parent")):
+                if who == "kernel":
+                    kern[n].append(queued(torch, jobs[n]["kernel"],
+                                          jobs[n]["sets"], nk, wk,
+                                          cycles_per_ms))
+                elif n in par:
+                    par[n].append(queued(torch, jobs[n]["parent"],
+                                         jobs[n]["sets"], nk, wk,
+                                         cycles_per_ms))
             if n in lib:
                 lib[n].append(queued(torch, jobs[n]["library"],
                                      jobs[n]["library_sets"], nk, wk,
@@ -1546,6 +1669,15 @@ def timing(torch, sw, art) -> dict:
                   f"library yardstick torch.mm of bfloat16 x against the "
                   f"weights in bfloat16 (the bytes of int16, not the same "
                   f"function) [{fmt(lib[n], 3)}] per call"))
+        if n.startswith("q15_matmul"):
+            print(f"timing {n}: {job['bytes'] / ms / 1e6:,.0f} GB/s of its "
+                  f"bytes; " + ("" if lib_ms is None else
+                                f"{ms / lib_ms:.3f} x the torch.mm "
+                                f"yardstick's time; ") + (
+                      f"the parent's K5 ({k5_parent}, same card, in turns "
+                      f"parent, K5, K5, parent) [{fmt(par[n], 3)}] per "
+                      f"call: {min(r[0] for r in par[n]) / ms:.3f} x faster"
+                      if n in par else "no parent K5 given"))
         out[n] = {"ms": ms, "plain_ms": min(r[0] for r in plain[n]),
                   "bound_ms": bound, "library_ms": lib_ms,
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -2057,6 +2189,14 @@ def lm_decode_continuity(torch, np, dev, cfg, params, lens, label) -> None:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port's paths on one "
+                                 "CUDA card (see the module docstring).")
+    ap.add_argument("--k5-parent", metavar="TREE",
+                    help="also time the K5 of another checkout (e.g. the "
+                         "parent commit unpacked by git archive) beside "
+                         "this one, on the same card")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -2097,7 +2237,7 @@ def main() -> int:
     fleet_path(torch, np, dev, art, feeds, single, mxu=False)
     del single
     failover(torch, np, dev, art, feeds)
-    t = timing(torch, sw, art)
+    t = timing(torch, sw, art, args.k5_parent)
     del feeds, art
     lm = lm_path(torch, np, dev, card)
     torch.cuda.empty_cache()

@@ -6,10 +6,12 @@ behind ``q15_matmul_padded``): ``(M, K) x (K, N)`` with int8/int16
 weights cast to bfloat16 inside the kernel, x rounded to bfloat16, float32
 accumulation and the per-tensor scale applied once at the end.  Its plain
 version :func:`plain` computes the same float32 products of the same
-bfloat16 values; the two differ only in the order of the float32
-additions.  At the LM engine's decode head (M <= 8 rows against a (1536,
-151936) integer head) the kernel reads every weight once, and HBM bytes
-bound the function for int16 and int8 alike (see the source).
+bfloat16 values; the two differ only in the order and rounding of the
+float32 additions (the kernel's run on the tensor cores).  At the LM
+engine's decode head (M <= 8 rows against a (1536, 151936) integer head)
+the kernel reads every weight once, and HBM bytes bound the function for
+int16 and int8 alike (see the source).  :meth:`Q15Matmul.plan` says which
+of the kernel's variants a launch runs.
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
 launches the kernel or raises.  There is no fallback from one to the other.
@@ -25,6 +27,7 @@ from repro_torch.kernels import _build
 KERNEL = "q15_matmul"
 
 _W_BITS = {torch.int8: 8, torch.int16: 16}
+LOADS = ("16-byte", "8-byte", "scalar")   # how a lane reads a row of w
 _OUT = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -36,6 +39,8 @@ _ARGTYPES = [_P, _P, _I, _P, _P, _I,     # x w w_bits scale out out_dtype
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.q15_matmul_launch.argtypes = _ARGTYPES
     lib.q15_matmul_launch.restype = _I
+    lib.q15_matmul_plan.argtypes = [_P, _I, _P, _I, _I]   # w w_bits out M N
+    lib.q15_matmul_plan.restype = _I
     lib.q15_matmul_error_string.argtypes = [_I]
     lib.q15_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -101,3 +106,21 @@ class Q15Matmul:
         if m and n:
             Q15Matmul.launches += 1
         return out
+
+    def plan(self, wq: torch.Tensor, m: int) -> tuple[str, int]:
+        """The kernel a launch on the CUDA tensor ``wq`` with ``m`` rows of
+        x runs: how it loads the weights (``LOADS``) and how many column
+        tiles a warp takes (1 or 2).  The wrapper's outputs come from
+        ``torch.empty``, so they are aligned.  Launches nothing."""
+        if wq.device.type != "cuda" or wq.dtype not in _W_BITS or \
+                not wq.is_contiguous():
+            raise ValueError("plan: wq must be a contiguous int8/int16 CUDA "
+                             "tensor")
+        if self._lib is None:
+            Q15Matmul._lib = _bind(_build.load(KERNEL))
+        code = self._lib.q15_matmul_plan(wq.data_ptr(), _W_BITS[wq.dtype],
+                                         256, m, wq.shape[1])
+        if code < 0:
+            raise ValueError(f"plan: the kernel does not take m={m}, "
+                             f"wq {tuple(wq.shape)}")
+        return LOADS[code // 4], code % 4

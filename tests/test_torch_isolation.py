@@ -209,41 +209,52 @@ def test_find_nvcc_raises_when_absent(monkeypatch, tmp_path):
         _build.find_nvcc()
 
 
+CUDA_SOURCES = ("q15_step.cu", "q15_step_dense.cu", "fastgrnn_window.cu",
+                "lut_act.cu", "q15_matmul.cu", "ssd_scan.cu")
+
+
 def test_cuda_source_holds_the_numerics_contract():
-    """The flags and intrinsics that make each kernel bitwise equal to its
-    plain version (checked here; the kernels themselves run on the card):
-    no FMA contraction, no fast math, explicit round-to-nearest ops."""
+    """The flags that make each kernel bitwise equal to its plain version
+    (the kernels themselves run on the card): no FMA contraction, no fast
+    math; and the sources that the per-source checks below cover."""
     from repro_torch.kernels import _build
     assert "--fmad=false" in _build.NVCC_FLAGS
     assert "-prec-div=true" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    assert {p.name for p in (PORT / "csrc").glob("*.cu")} == set(CUDA_SOURCES)
+
+
+@pytest.mark.parametrize("name", CUDA_SOURCES)
+def test_cuda_source_keeps_its_needles_and_bans(name):
+    """Each source, with the headers it includes, holds the intrinsics of
+    its numerics contract (explicit round-to-nearest ops) and none of the
+    banned ones.  K5 (``q15_matmul.cu``) alone may use the tensor cores:
+    its products of two bfloat16 values are exact in float32, and its gate
+    is a tolerance on the order of the float32 sums (1e-5 x max|plain|),
+    which ``mma.sync`` with float32 accumulation keeps."""
     csrc = PORT / "csrc"
-    headers = {p.name: p.read_text() for p in csrc.glob("*.cuh")}
-    sources = {}
-    for p in csrc.glob("*.cu"):     # each source with the headers it includes
-        src = p.read_text()
-        sources[p.name] = src + "".join(
-            text for h, text in headers.items() if f'#include "{h}"' in src)
-    assert set(sources) == {"q15_step.cu", "q15_step_dense.cu",
-                            "fastgrnn_window.cu", "lut_act.cu",
-                            "q15_matmul.cu", "ssd_scan.cu"}
-    for name, src in sources.items():
-        needles = ["__float2int_rz", "__fmul_rn", "__fadd_rn", "__fsub_rn",
-                   'extern "C"', "cudaGetLastError"]
-        if name == "q15_matmul.cu":     # bf16 products, float32 sums
-            needles = ["__float2bfloat16_rn", "__fmul_rn", "__fadd_rn",
-                       'extern "C"', "cudaGetLastError"]
-        if name == "ssd_scan.cu":       # float32 sums, held to a tolerance
-            needles = ['extern "C"', "cudaGetLastError"]
-        if name == "q15_step.cu":       # Q15 activation storage
-            needles += ["__fdiv_rn", "rintf"]
-        if name == "lut_act.cu":        # lerp's (x - lo) / bw, bf16 output
-            needles += ["__fdiv_rn", "__float2bfloat16_rn"]
-        for needle in needles:
-            assert needle in src, (name, needle)
-        for banned in ("roundf(", "__fmaf", "fmaf(", "fast_math", "__expf",
-                       "wmma", "mma."):
-            assert banned not in src, (name, banned)
+    src = (csrc / name).read_text()
+    src += "".join(p.read_text() for p in csrc.glob("*.cuh")
+                   if f'#include "{p.name}"' in src)
+    needles = ["__float2int_rz", "__fmul_rn", "__fadd_rn", "__fsub_rn",
+               'extern "C"', "cudaGetLastError"]
+    banned = ["roundf(", "__fmaf", "fmaf(", "fast_math", "__expf", "wmma",
+              "mma."]
+    if name == "q15_matmul.cu":     # bf16 products on the tensor cores
+        needles = ["mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "cvt.rn.bf16x2.f32", "__float2bfloat16_rn", "__fmul_rn",
+                   "__fadd_rn", 'extern "C"', "cudaGetLastError"]
+        banned.remove("mma.")
+    if name == "ssd_scan.cu":       # float32 sums, held to a tolerance
+        needles = ['extern "C"', "cudaGetLastError"]
+    if name == "q15_step.cu":       # Q15 activation storage
+        needles += ["__fdiv_rn", "rintf"]
+    if name == "lut_act.cu":        # lerp's (x - lo) / bw, bf16 output
+        needles += ["__fdiv_rn", "__float2bfloat16_rn"]
+    for needle in needles:
+        assert needle in src, (name, needle)
+    for ban in banned:
+        assert ban not in src, (name, ban)
 
 
 def test_hapt_loader_reads_nothing_outside_given_root(monkeypatch):

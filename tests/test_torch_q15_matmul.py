@@ -129,3 +129,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         s = torch.tensor([1.0, 2.0])
     with pytest.raises((TypeError, ValueError)):
         Q15Matmul()(x, wq, s)
+
+
+def test_plan_asks_the_card_only():
+    """Which kernel a launch would run is the card's launcher's answer
+    (``chip_smoke.py`` checks every plan there); a CPU tensor has none."""
+    wq = torch.zeros(8, 16, dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA"):
+        Q15Matmul().plan(wq, 8)
