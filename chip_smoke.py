@@ -2,10 +2,11 @@
 """Drive the PyTorch/CUDA port's serving, window and LM paths on one CUDA
 card.
 
-    python3 chip_smoke.py [--k5-parent TREE]
+    python3 chip_smoke.py [--k5-parent TREE] [--k6-parent TREE]
 
-(``--k5-parent``: also time the K5 of another checkout, e.g. the parent
-commit unpacked by ``git archive``, beside this one on the same card.)
+(``--k5-parent`` / ``--k6-parent``: also time the K5 / K6 of another
+checkout, e.g. the parent commit unpacked by ``git archive``, beside this
+one on the same card.)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -54,7 +55,10 @@ Phases (any failure exits non-zero; nothing is caught):
    float32 and bfloat16 x / B / C: float32 y and state within rtol = atol
    = 1e-4 (the reference's bound); bfloat16 y within 1e-5 x max|y| plus
    one bfloat16 ulp of plain's y, the float32 state as in float32; the
-   plain version on the card within 1e-4 of the CPU's on two heads.
+   plain version on the card within 1e-4 of the CPU's on two heads.  Then
+   K6 on the launcher's branches those shapes do not reach (K6_EDGES: one
+   row, odd N x P, several P tiles, rows not 16-byte aligned), under the
+   same bounds.
 5. the single-engine main path: ``StreamingEngine.from_artifact`` on
    ``cuda`` with 131,072 slots over an artifact (seeded PTQ at
    ``fastgrnn_har`` width, round-tripped through ``.fgar``); 131,072 +
@@ -109,8 +113,15 @@ Phases (any failure exits non-zero; nothing is caught):
     ``--k5-parent`` the other checkout's K5 runs in turns beside it
     (parent, K5, then K5, parent).  K6 at b = 1 x
     S = 1000 at mamba2-780m width in bfloat16 (four input sets of 31 MB),
-    bound by the least operations of the scan at any chunk length (no
-    library call computes the scan).
+    bound by the least operations of the scan at any chunk length (in
+    bfloat16 every product on the tensor cores, the float32 operands as
+    three bfloat16 parts; no library call computes the scan), its three
+    phases' device times from the profiler; also at a one-chunk prompt
+    (S = 256, bfloat16) and in float32 at S = 1000; each phase's grid,
+    shared memory and blocks per
+    SM at those shapes (P1 and P3 must have >= 132 blocks at S = 1000);
+    with ``--k6-parent`` the other checkout's K6, bound through its own
+    C signature, runs in turns beside each.
 12. the LM serving path at full Qwen2-1.5B width (bfloat16 weights drawn
     from a CUDA generator seeded 0): ``quantize_tree`` on the card bitwise
     equal to the CPU's (int16 and int8) on the embedding table, layer 0's
@@ -135,7 +146,11 @@ Phases (any failure exits non-zero; nothing is caught):
     prefill scan is K6: K6 launches = prefills x 48, K5 launches =
     prefills + decode ticks, and every K6 and K5 call is held against its
     plain version on the same inputs (phase 4's bounds); tokens/s, the
-    engine's spans, peak memory and a profiled window of 10 decode ticks.
+    engine's spans, peak memory, a profiled window of 10 decode ticks and
+    one profiled prefill of a 1000-token prompt (host wall, the device's
+    busy share, K6's device time by phase; fails if a phase is missing),
+    with ``--k6-parent`` timed again with the other checkout's K6 in the
+    scan's place, in turns (parent, K6, K6, parent) x 5.
     Then the float32 slotted decode as in phase 12, over prompts of 57 and
     300 tokens (two chunks): within 1e-3 of ``forward``, the inactive and
     empty slots' SSM states, conv tails and ``pos`` bitwise unchanged.
@@ -150,6 +165,7 @@ The last lines are the ``{"kernels": [...]}`` record, the card's
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -213,6 +229,7 @@ K5_REL = 1e-5             # K5 vs plain, relative to max |plain| (sum order)
 K5_REF_REL = 2e-2         # K5 vs the float32 oracle (the reference's bound)
 F32_DECODE_ATOL = 1e-3    # f32 slotted decode vs forward at full width
 LM_PROFILE_TICKS = 10     # decode ticks in the LM path's profiled window
+PREFILL_AB_ROUNDS = 5     # parent, K6, K6, parent prefills, with a parent
 SSM_ARCH = "mamba2-780m"  # phase 13's model, at full width
 SSM_PROMPT = (64, 1000)   # prompt tokens: one to four SSD chunks of 256
 SSM_MAX_LEN = 1088        # the longest prompt + the largest budget
@@ -1064,7 +1081,7 @@ def kernel_device_us(prof, name: str):
 # ---------------------------------------------------------------------------
 
 def profiled_window(torch, eng, feeds, kernel: str = "q15_step_kernel",
-                    label: str = "profiled window") -> dict | None:
+                    label: str = "profiled window") -> dict:
     """Refill the drained engine (or fleet) with one-window streams, step
     ``PROFILE_WARM`` ticks, then trace ``PROFILE_TICKS`` steady ticks
     (nothing admitted or emitted) with torch.profiler (host and device).
@@ -1085,22 +1102,19 @@ def profiled_window(torch, eng, feeds, kernel: str = "q15_step_kernel",
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     evs = device_events(prof)
-    if not evs:
-        print(f"{label}: the trace holds no device event, so the device "
-              "busy share is not measured")
-        return None
+    kern = kernel_device_us(prof, kernel)
+    if not evs or kern is None:
+        fail(f"{label}: the trace holds no device event of {kernel}")
     busy = busy_us(evs)
     by_name = {}
     for e in evs:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    kern = kernel_device_us(prof, kernel)
     print(f"{label} ({PROFILE_TICKS} steady ticks, {SLOTS} active "
           f"slots): host wall {wall_us:.1f} us ({wall_us / PROFILE_TICKS:.1f}"
           f" us per tick), device busy {busy:.1f} us = {busy / wall_us:.2%}, "
-          f"idle {1 - busy / wall_us:.2%}; {kernel} "
-          f"{kern[0] if kern else 0} launches x "
-          f"{kern[1] if kern else float('nan'):.3f} us device time")
+          f"idle {1 - busy / wall_us:.2%}; {kernel} {kern[0]} launches x "
+          f"{kern[1]:.3f} us device time")
     print(f"{label} device time by event (count, total us): " +
           "; ".join(f"{k[:60]} {n} {t:.1f}" for k, (n, t) in
                     sorted(by_name.items(), key=lambda kv: -kv[1][1])))
@@ -1428,7 +1442,75 @@ def parent_k5(torch, tree):
     return ParentK5()
 
 
-def timing_jobs(torch, sw, art, k5_parent) -> dict:
+# the ssd_scan_launch of the K6 before its three phases (one kernel, no
+# scratch): x dt A B C y state, dtype BH S P N Q, stream
+PARENT_K6_ARGTYPES = ["p"] * 7 + ["i"] * 6 + ["p"]
+
+
+@functools.cache
+def parent_k6(torch, tree):
+    """K6 built from ``<tree>/src/repro_torch/csrc/ssd_scan.cu`` (another
+    checkout, e.g. the parent commit's) with this checkout's nvcc flags, as
+    ``scan(x, dt, A, B, C, chunk=...) -> (y, state)`` in the per-head
+    layout; None without a tree.  A source that has ``ssd_scan_plan`` takes
+    this checkout's C signature and wrapper, one without it the
+    single-kernel signature of :data:`PARENT_K6_ARGTYPES`."""
+    if tree is None:
+        return None
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import kernel
+    src = os.path.join(tree, "src", "repro_torch", "csrc", "ssd_scan.cu")
+    lib = _build.BUILD_DIR / "libssd_scan_parent.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    src], check=True, capture_output=True)
+    c = ctypes.CDLL(str(lib))
+    if hasattr(c, "ssd_scan_plan"):
+
+        class ParentK6(kernel.SSDScan):
+            _lib = kernel._bind(c)
+        return ParentK6()
+    c.ssd_scan_launch.argtypes = [
+        ctypes.c_void_p if a == "p" else ctypes.c_int
+        for a in PARENT_K6_ARGTYPES]
+    c.ssd_scan_launch.restype = ctypes.c_int
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+
+    def scan(x, dt, A, B, C, *, chunk):
+        x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
+        bh, s, p = x.shape
+        n = B.shape[2]
+        y = torch.empty_like(x)
+        state = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
+        err = c.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), codes[x.dtype], bh,
+            s, p, n, chunk, torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the parent's K6 ({tree}) refused its launch ({err})")
+        return y, state
+    return scan
+
+
+def k6_plan(torch, dtype, h, s, p, n, q, *, fill: bool) -> None:
+    """Each K6 phase's grid, shared memory and resident blocks per SM at
+    one shape, as the launcher reports them (``SSDScan.plan``); with
+    ``fill``, fails unless P1 and P3 each have a block for every SM."""
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = SSDScan().plan(dtype, h, s, p, n, chunk=q)
+    line = "; ".join(f"{ph['phase']}: {ph['blocks']} blocks x "
+                     f"{ph['threads']} threads, {ph['smem']} B shared, "
+                     f"{ph['per_sm']} per SM" for ph in plan)
+    print(f"K6 plan at b=1 x S={s}, {h} heads of P={p}, N={n}, chunk {q}, "
+          f"{str(dtype)[6:]} ({sms} SMs): {line}")
+    if fill and min(plan[0]["blocks"], plan[2]["blocks"]) < sms:
+        fail(f"K6 at S={s}: P1 {plan[0]['blocks']} / P3 "
+             f"{plan[2]['blocks']} blocks, fewer than the {sms} SMs")
+
+
+def timing_jobs(torch, sw, art, k5_parent, k6_parent=None) -> dict:
     """Every kernel at its main path's shapes, with its plain version, its
     input sets (together past the 50 MB L2), its call counts (kernel n,
     warm-up; plain n, warm-up) and the bytes and fp32 instructions its
@@ -1525,71 +1607,93 @@ def timing_jobs(torch, sw, art, k5_parent) -> dict:
     # K6 at the SSM path's prefill shape: b = 1 x S = K6_TIMING_S tokens at
     # mamba2-780m width, bfloat16 x / B / C (the engine's compute dtype) in
     # the kernel's per-head layout (the one group of B and C broadcast over
-    # the heads, as ops.ssd_scan hands them over); four sets of 31 MB
+    # the heads, as ops.ssd_scan hands them over); four sets of 31 MB.
+    # Beside it a one-chunk prompt and the same shape in float32.
     from repro_torch import configs
     from repro_torch.kernels.ssd_scan.kernel import SSDScan
     from repro_torch.kernels.ssd_scan.kernel import plain as k6_plain
     c = configs.get(SSM_ARCH)
     h, p, n, q = (2 * c.d_model // c.mamba_headdim, c.mamba_headdim,
                   c.ssm_state, c.ssd_chunk)
-    s = K6_TIMING_S
-    bf = torch.bfloat16
+    scan, k6_parent = SSDScan(), parent_k6(torch, k6_parent)
 
-    def k6_set():
+    def k6_set(s, dtype):
         def rnd(*shape):
             return torch.randn(*shape, generator=g, device=dev)
-        return (rnd(h, s, p).to(bf),
+        return (rnd(h, s, p).to(dtype),
                 torch.nn.functional.softplus(rnd(h, s, 1)),
                 -torch.exp(rnd(h, 1)),
-                rnd(1, s, n).to(bf).expand(h, s, n).contiguous(),
-                rnd(1, s, n).to(bf).expand(h, s, n).contiguous())
-    ops_ms, best_q, fp32, flop = ssd_least_work(h, 1, s, p, n)
-    scan = SSDScan()
-    jobs["ssd_scan"] = dict(
-        kernel=lambda *a: scan(*a, chunk=q),
-        plain=lambda *a: k6_plain(*a, chunk=q),
-        sets=[k6_set() for _ in range(4)], counts=(30, 3, 4, 1),
-        # per head x and y in bfloat16, dt and A in float32, the state in
-        # float32; B and C in bfloat16 once for their one group
-        bytes=h * (2 * s * p * 2 + s * 4 + 4 + n * p * 4) + 2 * s * n * 2,
-        ops=fp32 + flop, ops_ms=ops_ms,
-        ops_what=f"the least over chunk lengths, at {best_q}: {fp32} fp32 "
-                 f"instructions over 33.5 T/s, {flop} bfloat16 tensor-core "
-                 f"FLOP over 989 T/s",
-        what=f"b=1 x S={s} at mamba2-780m width ({h} heads of P={p}, "
-             f"N={n}, chunk {q}), bfloat16")
+                rnd(1, s, n).to(dtype).expand(h, s, n).contiguous(),
+                rnd(1, s, n).to(dtype).expand(h, s, n).contiguous())
+    for name, s, dtype in (("ssd_scan", K6_TIMING_S, torch.bfloat16),
+                           ("ssd_scan one-chunk", q, torch.bfloat16),
+                           ("ssd_scan float32", K6_TIMING_S, torch.float32)):
+        k6_plan(torch, dtype, h, s, p, n, q, fill=s == K6_TIMING_S)
+        mma = dtype == torch.bfloat16
+        ops_ms, best_q, fp32, flop = ssd_least_work(h, 1, s, p, n,
+                                                    tensor_cores=mma)
+        e = torch.finfo(dtype).bits // 8
+        jobs[name] = dict(
+            kernel=lambda *a: scan(*a, chunk=q),
+            plain=lambda *a: k6_plain(*a, chunk=q),
+            sets=[k6_set(s, dtype) for _ in range(4)], counts=(30, 3, 4, 1),
+            # per head x and y in x's dtype, dt and A in float32, the state
+            # in float32; B and C in x's dtype once for their one group
+            bytes=h * (2 * s * p * e + s * 4 + 4 + n * p * 4) + 2 * s * n * e,
+            ops=fp32 + flop, ops_ms=ops_ms,
+            ops_what=f"the least over chunk lengths, at {best_q}: {fp32} "
+                     f"fp32 instructions over 33.5 T/s" + (
+                         f", {flop} bfloat16 tensor-core FLOP over 989 T/s "
+                         f"(C B^T exact; M x, C H and the state sums as "
+                         f"three bfloat16 parts)"
+                         if mma else " (every product: float32 products "
+                                     "are not exact in bfloat16)"),
+            prof=[f"ssd_scan_p{k}_" for k in (1, 2, 3)],
+            what=f"b=1 x S={s} at mamba2-780m width ({h} heads of P={p}, "
+                 f"N={n}, chunk {q}), {str(dtype)[6:]}")
+        if k6_parent is not None:
+            jobs[name]["parent"] = lambda *a: k6_parent(*a, chunk=q)
     for job in jobs.values():
         job["in_bytes"] = sum(t.numel() * t.element_size()
                               for st in job["sets"] for t in st)
     return jobs
 
 
-def ssd_least_work(h, g, s, p, n) -> tuple:
+def ssd_least_work(h, g, s, p, n, *, tensor_cores: bool = True) -> tuple:
     """The SSD scan's least operations for h heads (P = p) over g groups
     of B and C (N = n) and s tokens: its y and final state do not depend
     on the chunk length, so this is the chunked algorithm at the length
-    that needs the least time (length 1 is the recurrence, 3 N P float32
-    multiply-adds per token and head).  Per chunk of k rows: C B^T over
-    its lower triangle once per group, on the bfloat16 tensor cores (a
-    product of two bfloat16 values is exact in float32); per head in
-    float32, one FMA per multiply-add: M x over the triangle and four per
-    entry (M's difference, exp and two multiplies), C H and the state
-    update (N P per row each), N P for the state's decay.  The two units
-    issue side by side, so the time is the larger of theirs.  Returns
-    (ms, chunk length, float32 instructions, tensor-core FLOP)."""
+    that needs the least time (length 1 is the recurrence).  Per chunk of
+    k rows: C B^T over its lower triangle once per group (N multiply-adds
+    an entry); per head M x over the triangle (P an entry), C H and the
+    state sums (N P a row each), and in float32 four operations per M
+    entry (its difference, exp and two multiplies) and N P for the state's
+    decay.  With ``tensor_cores`` (bfloat16 inputs) every product runs on
+    the bfloat16 tensor cores, 2 FLOP a multiply-add: C B^T as it is (a
+    product of two bfloat16 values is exact in float32), M x, C H and the
+    state sums as three exact bfloat16 parts of their float32 operand (6
+    FLOP); the split itself is not counted.  Without (float32 inputs,
+    whose products are not exact in bfloat16) every multiply-add is one
+    float32 FMA.  The two units issue side by side, so the time is the
+    larger of theirs.  Returns (ms, chunk length, float32 instructions,
+    tensor-core FLOP)."""
     best = None
     for q in range(1, s + 1):
         ks = [min(q, s - c0) for c0 in range(0, s, q)]
         tri = sum(k * (k + 1) // 2 for k in ks)
-        fp32 = h * (tri * (p + 4) + 2 * s * n * p + len(ks) * n * p)
-        flop = g * tri * n * 2
+        cb, mx, ch = g * tri * n, h * tri * p, 2 * h * s * n * p
+        fp32 = h * (4 * tri + len(ks) * n * p)
+        if tensor_cores:
+            flop = 2 * cb + 6 * (mx + ch)
+        else:
+            fp32, flop = fp32 + cb + mx + ch, 0
         ms = max(fp32 / FP32_OPS_PER_S, flop / BF16_FLOP_PER_S) * 1e3
         if best is None or ms < best[0]:
             best = (ms, q, fp32, flop)
     return best
 
 
-def timing(torch, sw, art, k5_parent=None) -> dict:
+def timing(torch, sw, art, k5_parent=None, k6_parent=None) -> dict:
     """Per-call times of every kernel and of its plain version at the
     shapes of its main path, side by side in one process: device time of
     calls queued behind a sleep (CUDA events) and the host's enqueue cost
@@ -1600,7 +1704,7 @@ def timing(torch, sw, art, k5_parent=None) -> dict:
     the reverse order."""
     from torch.profiler import ProfilerActivity, profile
 
-    jobs = timing_jobs(torch, sw, art, k5_parent)
+    jobs = timing_jobs(torch, sw, art, k5_parent, k6_parent)
     cycles_per_ms = sleep_rate(torch)
     kern = {n: [] for n in jobs}
     plain = {n: [] for n in jobs}
@@ -1642,7 +1746,17 @@ def timing(torch, sw, art, k5_parent=None) -> dict:
             for i in range(job["counts"][0]):
                 job["kernel"](*job["sets"][i % len(job["sets"])])
             torch.cuda.synchronize()
-        prof_k = kernel_device_us(prof, f"{n.split()[0]}_kernel")
+        if "prof" in job:               # one launch of each phase a call
+            phases = [kernel_device_us(prof, k) for k in job["prof"]]
+            prof_k = None if None in phases else (
+                phases[0][0], sum(ph[1] for ph in phases))
+            print(f"timing {n}: device time by phase from the profiler: " +
+                  "; ".join(f"{k} " + ("not measured" if ph is None else
+                                       f"{ph[1]:.3f} us over {ph[0]} "
+                                       f"launches")
+                            for k, ph in zip(job["prof"], phases)))
+        else:
+            prof_k = kernel_device_us(prof, f"{n.split()[0]}_kernel")
         t_bytes = job["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = job.get("ops_ms", job["ops"] / FP32_OPS_PER_S * 1e3)
         ops_what = job.get("ops_what",
@@ -1678,6 +1792,12 @@ def timing(torch, sw, art, k5_parent=None) -> dict:
                       f"parent, K5, K5, parent) [{fmt(par[n], 3)}] per "
                       f"call: {min(r[0] for r in par[n]) / ms:.3f} x faster"
                       if n in par else "no parent K5 given"))
+        if n.startswith("ssd_scan"):
+            print(f"timing {n}: " + (
+                f"the parent's K6 ({k6_parent}, same card, in turns "
+                f"parent, K6, K6, parent) [{fmt(par[n], 3)}] per call: "
+                f"{min(r[0] for r in par[n]) / ms:.3f} x faster"
+                if n in par else "no parent K6 given"))
         out[n] = {"ms": ms, "plain_ms": min(r[0] for r in plain[n]),
                   "bound_ms": bound, "library_ms": lib_ms,
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1863,6 +1983,49 @@ def ssd_vs_plain(torch, np, dev) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# (BH, S, P, N, chunk) of the launcher's branches that phase 4's shapes do
+# not reach: one row; N = 100 and P = 80 (two P tiles, B and C rows not
+# 16-byte aligned); N x P odd (the state pass one element a thread, no
+# 16-byte load anywhere); three P tiles at a 512-row chunk
+K6_EDGES = ((2, 1, 64, 128, 256), (2, 300, 80, 100, 100), (3, 77, 5, 7, 13),
+            (2, 700, 130, 128, 512))
+
+
+def ssd_edges(torch, dev) -> None:
+    """K6 through its wrapper against the plain version on the branches
+    of its launcher that the model's shapes do not take (K6_EDGES), in
+    float32 and bfloat16, and once on inputs that start one element past
+    a 16-byte boundary (the loads without vectors); phase 4's bounds."""
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    from repro_torch.kernels.ssd_scan.kernel import plain
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    scan, cases = SSDScan(), 0
+
+    def rnd(n, *shape):
+        return torch.randn(n, generator=g, device=dev).view(*shape)
+    for (bh, s, p, n, q), skew in [(e, 0) for e in K6_EDGES] + [
+            (K6_EDGES[3], 1)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = rnd(bh * s * p, bh, s, p).to(dtype)
+            B, C = (rnd(bh * s * n, bh, s, n).to(dtype) for _ in range(2))
+            if skew:
+                x, B, C = (torch.empty(t.numel() + skew, dtype=dtype,
+                                       device=dev)[skew:].view(t.shape)
+                           .copy_(t) for t in (x, B, C))
+            dt = torch.nn.functional.softplus(rnd(bh * s, bh, s, 1))
+            A = -torch.exp(rnd(bh, bh, 1))
+            y, st = scan(x, dt, A, B, C, chunk=q)
+            want_y, want_st = plain(x, dt, A, B, C, chunk=q)
+            k6_error(torch, y, st, want_y, want_st,
+                     f"edge {str(dtype)[6:]} BH={bh} S={s} P={p} N={n} "
+                     f"chunk={q}{' unaligned' if skew else ''}")
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"K6 edges: {cases} cases (BH, S, P, N, chunk) in {K6_EDGES}, "
+          f"float32 and bfloat16, the last also one element off a 16-byte "
+          f"boundary, within phase 4's bounds of the plain version")
+
+
 def mamba_cfgs():
     """The configs of the Mamba-2 families' paths (phases 13 and 14)."""
     from repro_torch import configs
@@ -2026,20 +2189,25 @@ def lm_path(torch, np, dev, card) -> dict:
     return {"launches": out["k5"], "max_abs_err": out["k5_err"]}
 
 
-def ssm_path(torch, np, dev, card) -> dict:
+def ssm_path(torch, np, dev, card, k6_parent=None) -> dict:
     """Phase 13: mamba2-780m at full width: the engine over 24 requests
     whose prompts cross one to four SSD chunks, K5 and K6 held against
-    their plain versions; a profiled window of decode ticks; the float32
-    slotted decode against ``forward`` over a prompt that spans two
-    chunks."""
+    their plain versions; a profiled window of decode ticks; a profiled
+    1000-token prefill (beside ``k6_parent``'s K6, with a parent tree);
+    the float32 slotted decode against ``forward`` over a prompt that
+    spans two chunks."""
     from repro_torch import configs
     cfg = configs.get(SSM_ARCH)
     params = init_lm(torch, dev, cfg)
     reqs = lm_requests(np, cfg.vocab_size, LM_REQUESTS, SSM_PROMPT, LM_NEW)
     out = serve_lm(torch, np, dev, card, cfg, params, slots=LM_SLOTS,
                    max_len=SSM_MAX_LEN, reqs=reqs, label="SSM path")
-    lm_profiled_ticks(torch, np, out.pop("eng"), cfg.vocab_size,
-                      SSM_PROMPT[1], LM_NEW[1], "SSM profiled window")
+    eng = out.pop("eng")
+    lm_profiled_ticks(torch, np, eng, cfg.vocab_size, SSM_PROMPT[1],
+                      LM_NEW[1], "SSM profiled window")
+    lm_profiled_prefill(torch, np, eng, cfg.vocab_size, SSM_PROMPT[1],
+                        "SSM profiled prefill", parent_k6(torch, k6_parent))
+    del eng
     lm_decode_continuity(torch, np, dev, cfg, params, (57, 300), "SSM")
     return out
 
@@ -2088,27 +2256,88 @@ def lm_profiled_ticks(torch, np, eng, vocab: int, prompt: int, budget: int,
     for rid in rids:
         eng.cancel(rid)
     evs = device_events(prof)
-    if not evs:
-        print(f"{label}: the trace holds no device event, so the device busy "
-              "share is not measured")
-        return
+    k5 = kernel_device_us(prof, "q15_matmul_kernel")
+    if not evs or k5 is None:
+        fail(f"{label}: the trace holds no device event of q15_matmul_kernel")
     busy = busy_us(evs)
     by_name = {}
     for e in evs:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    k5 = kernel_device_us(prof, "q15_matmul_kernel")
     print(f"{label} ({LM_PROFILE_TICKS} decode ticks, {slots} active "
           f"slots): host wall {wall_us:.1f} us "
           f"({wall_us / LM_PROFILE_TICKS:.1f} us per tick), device busy "
           f"{busy:.1f} us = {busy / wall_us:.2%}, idle "
           f"{1 - busy / wall_us:.2%}; {len(evs)} device events "
           f"({len(evs) / LM_PROFILE_TICKS:.0f} per tick); q15_matmul_kernel "
-          f"{k5[0] if k5 else 0} launches x "
-          f"{k5[1] if k5 else float('nan'):.3f} us device time")
+          f"{k5[0]} launches x {k5[1]:.3f} us device time")
     print(f"{label} device time by event (count, total us): " +
           "; ".join(f"{k[:60]} {n} {t:.1f}" for k, (n, t) in
                     sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]))
+
+
+def lm_profiled_prefill(torch, np, eng, vocab: int, prompt: int,
+                        label: str, parent=None) -> None:
+    """One request of ``prompt`` tokens and a budget of one token (its
+    prefill samples it), run once untraced and then under torch.profiler
+    (host and device) from its submission, which prefills it into a free
+    slot, to its completion: the host wall time, the device's busy share
+    and K6's device time, each phase summed over its launches; fails if
+    the trace misses a K6 phase.  With ``parent`` (another checkout's K6,
+    :func:`parent_k6`), the same prefill is then timed with it in the
+    scan's place and with this K6, in turns."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 3)
+    toks = rng.integers(0, vocab, prompt).astype(np.int32)
+
+    def prefill() -> float:
+        """Host wall ms from submission to completion, device included."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rid = eng.submit(toks, 1)        # prefills it into a free slot
+        eng.run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        eng.result(rid)
+        return wall
+
+    prefill()                            # untraced, to warm up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_us = prefill() * 1e3
+    evs = device_events(prof)
+    k6 = [kernel_device_us(prof, f"ssd_scan_p{k}_") for k in (1, 2, 3)]
+    if not evs or None in k6:
+        fail(f"{label}: the trace misses a K6 phase (P1, P2, P3: {k6})")
+    busy = busy_us(evs)
+    k6_us = sum(n * t for n, t in k6)
+    print(f"{label} (one request of {prompt} prompt tokens, budget 1): host "
+          f"wall {wall_us:.1f} us, device busy {busy:.1f} us = "
+          f"{busy / wall_us:.2%} (idle {1 - busy / wall_us:.2%}), "
+          f"{len(evs)} device events; K6 {k6_us:.1f} us of device time "
+          f"({k6_us / busy:.2%} of the busy time) over {k6[0][0]} calls: " +
+          "; ".join(f"P{k + 1} {ph[1]:.3f} us a launch"
+                    for k, ph in enumerate(k6)))
+    if parent is None:
+        return
+    from repro_torch.kernels.ssd_scan import ops
+    ours, walls = ops._SCAN, {"parent": [], "K6": []}
+    try:
+        for _ in range(PREFILL_AB_ROUNDS):
+            for who in ("parent", "K6", "K6", "parent"):
+                ops._SCAN = parent if who == "parent" else ours
+                walls[who].append(prefill())
+    finally:
+        ops._SCAN = ours
+    med = {who: float(np.median(w)) for who, w in walls.items()}
+    wins = sum(k < p for k, p in zip(walls["K6"], walls["parent"]))
+    print(f"{label}: the same prefill with the parent's K6 in the scan's "
+          f"place, in turns parent, K6, K6, parent x {PREFILL_AB_ROUNDS}: "
+          f"parent [{', '.join(f'{w:.3f}' for w in walls['parent'])}] ms, "
+          f"median {med['parent']:.3f} ms; K6 "
+          f"[{', '.join(f'{w:.3f}' for w in walls['K6'])}] ms, median "
+          f"{med['K6']:.3f} ms; parent - K6 {med['parent'] - med['K6']:+.3f} "
+          f"ms; K6 faster in {wins} of {len(walls['K6'])} pairs")
 
 
 def cache_rows(cache, slot: int) -> dict:
@@ -2196,6 +2425,11 @@ def main() -> int:
                     help="also time the K5 of another checkout (e.g. the "
                          "parent commit unpacked by git archive) beside "
                          "this one, on the same card")
+    ap.add_argument("--k6-parent", metavar="TREE",
+                    help="also time the K6 of another checkout (its "
+                         "ssd_scan.cu, with this C signature or the "
+                         "single-kernel one of PARENT_K6_ARGTYPES) beside "
+                         "this one, on the same card")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2220,6 +2454,7 @@ def main() -> int:
     window_err = window_vs_plain(torch, np, dev)
     q15_vs_plain(torch, np, dev)
     ssd_vs_plain(torch, np, dev)
+    ssd_edges(torch, dev)
     launches, eng, feeds, art, events = main_path(torch, np, dev)
     profiled_window(torch, eng, feeds)
     sw = eng.kernel.sw
@@ -2237,11 +2472,11 @@ def main() -> int:
     fleet_path(torch, np, dev, art, feeds, single, mxu=False)
     del single
     failover(torch, np, dev, art, feeds)
-    t = timing(torch, sw, art, args.k5_parent)
+    t = timing(torch, sw, art, args.k5_parent, args.k6_parent)
     del feeds, art
     lm = lm_path(torch, np, dev, card)
     torch.cuda.empty_cache()
-    ssm = ssm_path(torch, np, dev, card)
+    ssm = ssm_path(torch, np, dev, card, args.k6_parent)
     torch.cuda.empty_cache()
     hybrid_path(torch, np, dev, card)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"

@@ -8,12 +8,25 @@ per program, in the reference's per-head layout: x (BH, S, P), dt (BH, S,
 (BH, S, P) in x's dtype and the final state (BH, N, P) float32, from a
 zero state.  :func:`plain` computes the same function chunk by chunk in
 PyTorch; the two differ only in the order of the float32 sums, so they
-are held to a tolerance (the reference's 1e-4), not bitwise.  At the LM
-engine's prefill the function is bound by its float32 multiply-adds (see
+are held to a tolerance (the reference's 1e-4), not bitwise.
+
+On the card one call enqueues three kernels, in order: P1 the chunk
+states, parallel over (head, chunk, tile of N x P), which also writes each
+chunk's cumsum (in :func:`chunk_cumsum`'s order) to a scratch; P2 the
+pass over the chunks that carries the state; P3 the outputs, parallel
+over (head, chunk, 64-row tile, tile of P).  With bfloat16 inputs every
+product runs on the tensor cores with float32 sums (C B^T as it is, the
+float32 operands M, H and B * w as three exact bfloat16 parts each); with
+float32 inputs the phases use one FMA per multiply-add.  The wrapper
+allocates the float32 scratch (the cumsums, (BH, S), and the chunk
+states, (BH, ceil(S / chunk), N, P)); :meth:`SSDScan.plan` reports each
+phase's grid and shared memory.  The function is bound by its
+multiply-adds, in bfloat16 on the tensor cores just above its bytes (see
 the source).
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.  There is no fallback from one to the other.
+launches the kernels or raises.  There is no fallback from one to the
+other.
 """
 from __future__ import annotations
 
@@ -30,13 +43,20 @@ MAX_STATE = 128               # the kernel's largest N
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# ssd_scan_launch(x, dt, A, B, C, y, state, cs, hc, dtype, BH, S, P, N, Q,
+# stream): cs (BH, S) and hc (BH, ceil(S / Q), N, P) are float32 scratch
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _P,     # x dt A B C y state
+             _P, _P,                         # cs hc (scratch)
              _I, _I, _I, _I, _I, _I, _P]     # dtype BH S P N Q stream
+PHASES = ("P1 chunk state", "P2 state pass", "P3 chunk output")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_scan_launch.argtypes = _ARGTYPES
     lib.ssd_scan_launch.restype = _I
+    lib.ssd_scan_plan.argtypes = [_I, _I, _I, _I, _I, _I,
+                                  ctypes.POINTER(ctypes.c_int)]
+    lib.ssd_scan_plan.restype = _I
     lib.ssd_scan_error_string.argtypes = [_I]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -138,11 +158,14 @@ class SSDScan:
             SSDScan._lib = _bind(_build.load(KERNEL))
         x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
         y = torch.empty_like(x)
-        state = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = torch.empty((bh, n, p), **f32)
+        cs = torch.empty((bh, s), **f32)
+        hc = torch.empty((bh, -(-s // chunk), n, p), **f32)
         err = self._lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype],
-            bh, s, p, n, chunk,
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), cs.data_ptr(),
+            hc.data_ptr(), _DTYPES[x.dtype], bh, s, p, n, chunk,
             torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             msg = self._lib.ssd_scan_error_string(err).decode()
@@ -150,3 +173,27 @@ class SSDScan:
         if bh:
             SSDScan.launches += 1
         return y, state
+
+    def plan(self, dtype: torch.dtype, bh: int, s: int, p: int, n: int, *,
+             chunk: int) -> list[dict]:
+        """What a launch at these sizes runs on the current card, one dict
+        per phase (:data:`PHASES`): ``blocks``, ``threads`` a block,
+        ``smem`` bytes of shared memory a block and ``per_sm``, the blocks
+        an SM holds at once.  Launches nothing; needs the card (the
+        occupancy is the card's answer)."""
+        if dtype not in _DTYPES:
+            raise TypeError(f"plan: dtype {dtype}: float32 or bfloat16")
+        if not torch.cuda.is_available():
+            raise RuntimeError("plan: the occupancy comes from a CUDA card, "
+                               "and there is none")
+        if SSDScan._lib is None:
+            SSDScan._lib = _bind(_build.load(KERNEL))
+        out = (ctypes.c_int * 12)()
+        err = self._lib.ssd_scan_plan(_DTYPES[dtype], bh, s, p, n, chunk, out)
+        if err != 0:
+            msg = self._lib.ssd_scan_error_string(err).decode()
+            raise ValueError(f"plan: the kernel does not take bh={bh}, s={s}, "
+                             f"p={p}, n={n}, chunk={chunk} ({msg})")
+        return [dict(phase=name, blocks=out[4 * k], threads=out[4 * k + 1],
+                     smem=out[4 * k + 2], per_sm=out[4 * k + 3])
+                for k, name in enumerate(PHASES)]
