@@ -2,11 +2,11 @@
 """Drive the PyTorch/CUDA port's serving, window and LM paths on one CUDA
 card.
 
-    python3 chip_smoke.py [--k5-parent TREE] [--k6-parent TREE]
+    python3 chip_smoke.py [--parent TREE]
 
-(``--k5-parent`` / ``--k6-parent``: also time the K5 / K6 of another
-checkout, e.g. the parent commit unpacked by ``git archive``, beside this
-one on the same card.)
+(``--parent``: also time the K1, K5 and K6 of another checkout, e.g. the
+parent commit unpacked by ``git archive``, beside this one's on the same
+card.)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -16,13 +16,22 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build every kernel (``src/repro_torch/csrc/``: ``q15_step.cu`` K1,
    ``q15_step_dense.cu`` K2, ``fastgrnn_window.cu`` K3, ``lut_act.cu``
    K4, ``q15_matmul.cu`` K5, ``ssd_scan.cu`` K6) with nvcc, one process
-   per source, started together.
+   per source, started together (with ``--parent``, the other checkout's
+   K1, K5 and K6 beside them); fails unless ptxas reports a 0-byte stack
+   frame for both fixed-width K1 instantiations.
 3. K1 vs plain on the card: S = 131,072 streams at paper width, low- and
    full-rank, deployed / calibrated / naive activation storage, about a
    third of the rows masked, 2 % of them driven into LUT saturation, 128
-   chained steps.  The kernel must equal the plain torch step bitwise every
-   step; the plain step on the card must equal the CPU plain step bitwise
-   on 4,096 rows, and the scalar ``QRuntime`` must agree bitwise on 64 rows.
+   chained steps.  The kernel must run its fixed-width code there and
+   equal the plain torch step bitwise every step; the plain step on the
+   card must equal the CPU plain step bitwise on 4,096 rows, and the
+   scalar ``QRuntime`` must agree bitwise on 64 rows.  ``FastGRNNStep.plan``
+   at S = 131,072 is printed for both ranks (fails unless the fixed code
+   runs there with 0 bytes of local memory); then the K1 edge check, three
+   chained steps each, bitwise: the runtime-width code at H = 12, d = 5 and
+   at r_w = 3, r_u = 5, S = 1, S = 255 (naive storage) and S = 131,071 (a
+   ragged last tile), h and out 4 bytes off a 16-byte boundary (the
+   runtime-width code), all rows masked and none.
 4. K2 vs plain on the card: the same inputs for the dense layout (low and
    full rank); K2 must equal ``qstep.step_dense`` bitwise every step and
    the plain dense step on the card the CPU one on 4,096 rows; K2 must be
@@ -64,9 +73,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``fastgrnn_har`` width, round-tripped through ``.fgar``); 131,072 +
    1,024 synthetic-HAPT streams (some two windows long, some detached
    mid-window, the extra ones pending until slots free), drained.  K1
-   launches must equal advancing ticks, sampled streams' events must be
-   bitwise those of the CPU engine and of the scalar ``QRuntime``, and no
-   hidden-state byte may go host-to-device.
+   launches must equal advancing ticks and every one must run K1's
+   fixed-width code, sampled streams' events must be bitwise those of the
+   CPU engine and of the scalar ``QRuntime``, and no hidden-state byte may
+   go host-to-device.
 6. a profiled steady window of that path (torch.profiler, host and
    device): the step kernel's device time and the device's busy share.
 7. the window path (Table VI, Sec. VI-A) on the 3,399-window synthetic
@@ -92,7 +102,8 @@ Phases (any failure exits non-zero; nothing is caught):
    least 99.9 % of the windows' predictions must equal the K1 engine's.
    Then a profiled steady window of the fleet, as in phase 6.
 9. the same fleet on K1 (``mxu=False``): every stream's events must be
-   bitwise those of the single engine (shard-count invariance on the card).
+   bitwise those of the single engine (shard-count invariance on the
+   card), and every K1 launch must run its fixed-width code.
 10. failover: 4 shards x 4,096 slots on K2, snapshots every 16 ticks, one
     crash at each tick phase; the events must be bitwise those of the same
     run without crashes.  The width is cut from 131,072 because every
@@ -109,9 +120,10 @@ Phases (any failure exits non-zero; nothing is caught):
     ``torch.mm`` of the bfloat16 x against the same weights
     converted to bfloat16 beforehand as the library yardstick of its bytes
     (not the same function: no integer weights, no scale); its
-    operations count as bfloat16 tensor-core FLOP over 989 T/s, and with
-    ``--k5-parent`` the other checkout's K5 runs in turns beside it
-    (parent, K5, then K5, parent).  K6 at b = 1 x
+    operations count as bfloat16 tensor-core FLOP over 989 T/s.  With
+    ``--parent`` the other checkout's K1, K5 and K6 run in turns beside
+    this checkout's (parent, kernel, then kernel, parent), each bound
+    through this checkout's wrapper.  K6 at b = 1 x
     S = 1000 at mamba2-780m width in bfloat16 (four input sets of 31 MB),
     bound by the least operations of the scan at any chunk length (in
     bfloat16 every product on the tensor cores, the float32 operands as
@@ -120,8 +132,7 @@ Phases (any failure exits non-zero; nothing is caught):
     (S = 256, bfloat16) and in float32 at S = 1000; each phase's grid,
     shared memory and blocks per
     SM at those shapes (P1 and P3 must have >= 132 blocks at S = 1000);
-    with ``--k6-parent`` the other checkout's K6, bound through its own
-    C signature, runs in turns beside each.
+    with ``--parent`` the other checkout's K6 runs in turns beside each.
 12. the LM serving path at full Qwen2-1.5B width (bfloat16 weights drawn
     from a CUDA generator seeded 0): ``quantize_tree`` on the card bitwise
     equal to the CPU's (int16 and int8) on the embedding table, layer 0's
@@ -149,7 +160,7 @@ Phases (any failure exits non-zero; nothing is caught):
     engine's spans, peak memory, a profiled window of 10 decode ticks and
     one profiled prefill of a 1000-token prompt (host wall, the device's
     busy share, K6's device time by phase; fails if a phase is missing),
-    with ``--k6-parent`` timed again with the other checkout's K6 in the
+    with ``--parent`` timed again with the other checkout's K6 in the
     scan's place, in turns (parent, K6, K6, parent) x 5.
     Then the float32 slotted decode as in phase 12, over prompts of 57 and
     300 tokens (two chunks): within 1e-3 of ``forward``, the inactive and
@@ -165,7 +176,6 @@ The last lines are the ``{"kernels": [...]}`` record, the card's
 """
 from __future__ import annotations
 
-import functools
 import json
 import os
 import shutil
@@ -299,14 +309,18 @@ KERNELS = ("q15_step", "q15_step_dense", "fastgrnn_window", "lut_act",
            "q15_matmul", "ssd_scan")
 
 
-def build() -> None:
-    """Every kernel, one nvcc each, started together; each one's build time
-    and what ptxas reports of its registers, shared memory and spills."""
+def build(parent=None) -> None:
+    """Every kernel, one nvcc each, started together (with ``parent``, the
+    other checkout's K1, K5 and K6 too); each one's build time and what
+    ptxas reports of its registers, shared memory and spills.  Fails
+    unless both fixed-width K1 instantiations have a 0-byte stack frame."""
     from repro_torch.kernels import _build
     if tuple(sorted(_build.kernel_names())) != tuple(sorted(KERNELS)):
         fail(f"kernel sources {_build.kernel_names()} != {sorted(KERNELS)}")
     t0 = time.perf_counter()
+    procs = start_parent_builds(parent)
     built = _build.build_all()
+    finish_parent_builds(parent, procs)
     wall = time.perf_counter() - t0
     for name, (lib, dt, log) in built.items():
         print(f"build: {lib.name} in {dt:.2f} s")
@@ -315,6 +329,32 @@ def build() -> None:
                                        "stack frame")):
                 print(f"  {line.strip()}")
     print(f"build: {len(built)} kernels in {wall:.2f} s (parallel nvcc)")
+    frames = k1_fixed_frames(built["q15_step"][2])
+    if built["q15_step"][1] and (len(frames) != 2 or any(frames.values())):
+        fail(f"K1's fixed-width instantiations' stack frames {frames}, want "
+             "two of 0 bytes")
+    print(f"build: K1 fixed-width stack frames {frames} (bytes)")
+
+
+def k1_fixed_frames(log: str) -> dict:
+    """{instantiation: stack frame bytes} of K1's fixed-width kernels in a
+    ptxas -v log (the entry names are mangled: ILi16ELi3ELi2ELi8E is
+    <16, 3, 2, 8>)."""
+    import re
+    frames, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and entry and "q15_step_kernel_fixed" in entry:
+            args = re.search(r"I((?:Li\d+E)+)E", entry)
+            key = ",".join(re.findall(r"Li(\d+)E", args.group(1))) \
+                if args else entry
+            frames[key] = int(m.group(1))
+            entry = None
+    return frames
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +399,11 @@ def kernel_vs_plain(torch, windows, dev) -> float:
                 x = torch.randn(S_KERNEL, d, generator=g, device=dev) \
                     * torch.where(big, 200.0, 1.0)
                 m = torch.rand(S_KERNEL, generator=g, device=dev) >= 1 / 3
-                h_k = k_dev(h_k, x, m)
+                h_next = k_dev(h_k, x, m)
+                if t == 0 and not k_dev.fixed_width(h_k, h_next):
+                    fail(f"K1 did not run its fixed-width code at paper "
+                         f"width ({mode}, low_rank={low_rank})")
+                h_k = h_next
                 h_p = k_dev.plain(h_p, x, m)
                 if not bits_equal(h_k, h_p):
                     fail(f"kernel != plain ({mode}, low_rank={low_rank}, "
@@ -379,11 +423,117 @@ def kernel_vs_plain(torch, windows, dev) -> float:
                          f"{low_rank}, step {t})")
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            print(f"kernel==plain bitwise: {'low' if low_rank else 'full'}"
+            print(f"kernel==plain bitwise (fixed-width K1): "
+                  f"{'low' if low_rank else 'full'}"
                   f"-rank {mode:10s} S={S_KERNEL} x {STEPS} steps "
                   f"(cpu plain {CPU_ROWS} rows, QRuntime {SCALAR_ROWS} rows) "
                   f"in {time.perf_counter() - t0:.1f} s")
     return max_err
+
+
+def k1_step(dev, *, naive: bool = False, **shape):
+    """A K1 wrapper for seeded Q15 weights at ``weights.random_params``'
+    shape keywords (default: the paper's width, low rank)."""
+    from repro_torch import weights
+    from repro_torch.core.quantization import QuantConfig, quantize_params
+    from repro_torch.kernels.fastgrnn_cell import qstep
+    from repro_torch.kernels.fastgrnn_cell.kernel import FastGRNNStep
+    qp = quantize_params(weights.random_params(SEED, **shape), QuantConfig())
+    return FastGRNNStep(qstep.StepWeights.from_quantized(
+        qp, naive_acts=naive), dev)
+
+
+def k1_plan(torch, dev) -> None:
+    """``FastGRNNStep.plan`` at S = 131,072 (phase 3's and the main path's
+    S) for both fixed-width instantiations; fails unless the fixed code
+    runs there with no local memory."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for low_rank in (True, False):
+        k = k1_step(dev, low_rank=low_rank)
+        h = torch.empty(S_KERNEL, k.sw.hidden_dim, device=dev)
+        pl = k.plan(S_KERNEL, h, torch.empty_like(h))
+        print(f"K1 plan at S={S_KERNEL}, {'low' if low_rank else 'full'} "
+              f"rank ({sms} SMs): " + ", ".join(f"{key} {v}" for key, v in
+                                                pl.items()))
+        if not pl["fixed"] or pl["local_bytes"]:
+            fail(f"K1 at paper width: fixed {pl['fixed']}, local memory "
+                 f"{pl['local_bytes']} B a thread; want the fixed-width code "
+                 f"with none")
+
+
+K1_EDGE_STEPS = 3   # chained steps a K1 edge case
+
+
+def k1_edges(torch, dev) -> None:
+    """K1 bitwise against its plain version, for a few chained steps each,
+    on the branches phase 3's shapes do not reach: the runtime-width code
+    (H = 12, d = 5; r_w = 3, r_u = 5), S = 1, 255 (Q15 storage) and
+    131,071 (a ragged last tile), h and out 4 bytes off a 16-byte boundary
+    (the runtime-width code), all rows masked and none."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    paper = k1_step(dev)
+    cases = (  # label, step, S, mask, h/out 4 B off 16 B, fixed-width code
+        ("H=12, d=5", k1_step(dev, hidden_dim=12, input_dim=5), 4_096,
+         "third", False, False),
+        ("r_w=3, r_u=5", k1_step(dev, rank_w=3, rank_u=5), 4_096, "third",
+         False, False),
+        ("S=1", paper, 1, "third", False, True),
+        ("S=255, naive storage", k1_step(dev, naive=True), 255, "third",
+         False, True),
+        (f"S={S_KERNEL - 1:,}", paper, S_KERNEL - 1, "third", False, True),
+        ("h, out 4 B off 16 B", paper, 4_096, "third", True, False),
+        ("all rows masked", paper, 4_096, "all", False, True),
+        ("no row masked", paper, 4_096, "none", False, True))
+    for label, k, n, masked, offset, want_fixed in cases:
+        H, d = k.sw.hidden_dim, k.sw.input_dim
+
+        def state():
+            if not offset:
+                return torch.empty(n, H, device=dev)
+            return torch.empty(n * H + 1, device=dev)[1:].view(n, H)
+        h = state()
+        h.copy_(0.5 * torch.randn(n, H, generator=g, device=dev))
+        for t in range(K1_EDGE_STEPS):
+            big = torch.rand(n, 1, generator=g, device=dev) < 0.02
+            x = torch.randn(n, d, generator=g, device=dev) \
+                * torch.where(big, 200.0, 1.0)
+            m = {"third": torch.rand(n, generator=g, device=dev) >= 1 / 3,
+                 "all": torch.zeros(n, dtype=torch.bool, device=dev),
+                 "none": torch.ones(n, dtype=torch.bool, device=dev)}[masked]
+            out = k._launch(h, x, m, state())
+            if t == 0 and k.fixed_width(h, out) != want_fixed:
+                fail(f"K1 edge {label}: fixed-width code "
+                     f"{k.fixed_width(h, out)}, want {want_fixed}")
+            want = k.plain(h, x, m)
+            if not bits_equal(out, want):
+                fail(f"K1 edge {label}, step {t}: {first_diff(out, want)}")
+            h = out
+        torch.cuda.synchronize()
+        print(f"K1==plain bitwise, edge {label}: S={n} x {K1_EDGE_STEPS} "
+              f"steps ({'fixed' if want_fixed else 'runtime'}-width code)")
+
+
+class FixedCount:
+    """A K1 wrapper's library seen through, to show which code its launches
+    ran: each ``q15_step_launch`` first asks ``q15_step_plan`` (the plan the
+    launch itself makes) for its h and out, and counts those that run the
+    fixed-width code.  It launches nothing of its own."""
+
+    def __init__(self, lib):
+        self._lib, self.fixed = lib, 0
+
+    def q15_step_launch(self, h, x, mask, out, S, H, D, low_rank, RW, RU,
+                        *rest):
+        import ctypes
+        plan = (ctypes.c_int * 8)()
+        if S and self._lib.q15_step_plan(S, H, D, low_rank, RW, RU, h, out,
+                                         plan) == 0:
+            self.fixed += plan[0]
+        return self._lib.q15_step_launch(h, x, mask, out, S, H, D, low_rank,
+                                         RW, RU, *rest)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 # ---------------------------------------------------------------------------
@@ -819,14 +969,20 @@ def main_path(torch, np, dev):
         art, StreamingConfig(max_slots=SLOTS, batch_events=True, device=dev),
         obs=obs)
     step_kernel = eng.kernel.kernel
+    lib = step_kernel._lib
+    step_kernel._lib = counted = FixedCount(lib)
     t0 = time.perf_counter()
     step_kernel.launches = 0            # count the main path's run only
     events, ticks, wall, steady = drive(eng, feeds, ids)
     launches = step_kernel.launches
     setup = time.perf_counter() - t0 - wall
+    step_kernel._lib = lib
     st = eng.stats()
     if launches != st["ticks"]:
         fail(f"kernel launches {launches} != advancing ticks {st['ticks']}")
+    if counted.fixed != launches:
+        fail(f"K1 ran its fixed-width code on {counted.fixed} of {launches} "
+             f"main-path launches")
     expect_steps = sum(DETACH_TICK if feeds.kind(i) == "detach" else
                        (256 if feeds.kind(i) == "two" else 128) for i in ids)
     if st["stream_steps"] != expect_steps:
@@ -867,7 +1023,8 @@ def main_path(torch, np, dev):
           f"set-up (attach) {setup:.1f} s")
     print_host("main path", tr, steady, obs.tracer)
     print(f"main path: {len(sample)} sampled streams bitwise equal to the "
-          f"CPU engine, {SCALAR_STREAMS} to the scalar QRuntime")
+          f"CPU engine, {SCALAR_STREAMS} to the scalar QRuntime; K1's "
+          f"fixed-width code on {counted.fixed} of {launches} launches")
     print("kernels: " + json.dumps([{"name": "q15_step", "launches": launches,
                                      "bitwise": True}]))
     return launches, eng, feeds, art, events
@@ -1235,11 +1392,21 @@ def fleet_path(torch, np, dev, art, feeds, single, *, mxu: bool) -> dict:
     if len(fleet._group_list) != 1:
         fail(f"{len(fleet._group_list)} device groups on one card, want 1")
     kernels = fleet_kernels(fleet)
+    libs = [k._lib for k in kernels]
+    if not mxu:
+        for k in kernels:
+            k._lib = FixedCount(k._lib)
     for k in kernels:
         k.launches = 0                  # count this path's run only
     events, ticks, wall, steady, advancing, report = drive_fleet(
         torch, fleet, feeds, ids, verbs=True)
     launches = sum(k.launches for k in kernels)
+    fixed = sum(k._lib.fixed for k in kernels) if not mxu else None
+    for k, lib in zip(kernels, libs):
+        k._lib = lib
+    if not mxu and fixed != launches:
+        fail(f"{name}: the fixed-width code ran on {fixed} of {launches} "
+             f"launches")
     setup = time.perf_counter() - t0 - wall
     kinds = {type(k).__name__ for k in kernels if k.launches}
     want = "DenseStep" if mxu else "FastGRNNStep"
@@ -1296,7 +1463,8 @@ def fleet_path(torch, np, dev, art, feeds, single, *, mxu: bool) -> dict:
                  f"single engine's")
         share = 1.0
         print(f"fleet {name}: all {len(single)} streams' events bitwise "
-              "equal to the single engine's")
+              f"equal to the single engine's; K1's fixed-width code on "
+              f"{fixed} of {launches} launches")
     rate = st["stream_steps"] / wall
     print(f"fleet {name}: {SHARDS} shards x {SHARD_SLOTS} slots, "
           f"{len(ids)} streams, {len(ticks)} ticks ({advancing} advancing, "
@@ -1416,22 +1584,74 @@ def queued(torch, fn, sets, n: int, warm: int, cycles_per_ms: float):
     return a.elapsed_time(b) / n, host_ms, prefilled
 
 
-def parent_k5(torch, tree):
-    """K5 built from ``<tree>/src/repro_torch/csrc/q15_matmul.cu`` (another
-    checkout, e.g. the parent commit's) with this checkout's nvcc flags,
-    behind this checkout's wrapper, for timing beside this K5 on the same
-    card; None without a tree."""
+# the kernels that --parent times beside this checkout's
+PARENT_KERNELS = ("q15_step", "q15_matmul", "ssd_scan")
+
+
+def start_parent_builds(tree) -> dict:
+    """Start nvcc on ``<tree>/src/repro_torch/csrc/<name>.cu`` for each of
+    :data:`PARENT_KERNELS` (another checkout, e.g. the parent commit's),
+    with this checkout's flags, one process each; {} without a tree."""
     if tree is None:
+        return {}
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in PARENT_KERNELS:
+        src = os.path.join(tree, "src", "repro_torch", "csrc", f"{name}.cu")
+        lib = _build.BUILD_DIR / f"lib{name}_parent.so"
+        procs[name] = (subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return procs
+
+
+_PARENT_LIBS: dict = {}
+
+
+def finish_parent_builds(tree, procs: dict) -> None:
+    """Wait for :func:`start_parent_builds`' processes and load each
+    library; fails if one does not build."""
+    import ctypes
+    for name, (proc, lib) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"the parent's {name}.cu ({tree}) does not build:\n{log}")
+        _PARENT_LIBS[name] = ctypes.CDLL(str(lib))
+        for line in log.splitlines():
+            if name == "q15_step" and ("stack frame" in line
+                                       or "registers" in line):
+                print(f"  parent {name}: {line.strip()}")
+    if procs:
+        print(f"build: the parent's {', '.join(procs)} from {tree}")
+
+
+def parent_k1(sw, dev):
+    """A :class:`FastGRNNStep` for ``sw`` whose launches run the parent's K1
+    (its ``q15_step_launch``, the same C signature, bound through this
+    wrapper's ``kernel._ARGTYPES``); None without a parent."""
+    c = _PARENT_LIBS.get("q15_step")
+    if c is None:
         return None
     import ctypes
-    from repro_torch.kernels import _build
+    from repro_torch.kernels.fastgrnn_cell import kernel
+    c.q15_step_launch.argtypes = kernel._ARGTYPES
+    c.q15_step_launch.restype = ctypes.c_int
+    c.q15_step_error_string.argtypes = [ctypes.c_int]
+    c.q15_step_error_string.restype = ctypes.c_char_p
+    step = kernel.FastGRNNStep(sw, dev)
+    step._lib = c
+    return step
+
+
+def parent_k5():
+    """K5 behind this checkout's wrapper with the parent's library (the same
+    C interface, no plan query); None without a parent."""
+    c = _PARENT_LIBS.get("q15_matmul")
+    if c is None:
+        return None
+    import ctypes
     from repro_torch.kernels.q15_matmul import kernel
-    src = os.path.join(tree, "src", "repro_torch", "csrc", "q15_matmul.cu")
-    lib = _build.BUILD_DIR / "libq15_matmul_parent.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    src], check=True, capture_output=True)
-    c = ctypes.CDLL(str(lib))          # the same C interface, no plan query
     c.q15_matmul_launch.argtypes = kernel._ARGTYPES
     c.q15_matmul_launch.restype = ctypes.c_int
     c.q15_matmul_error_string.argtypes = [ctypes.c_int]
@@ -1442,55 +1662,22 @@ def parent_k5(torch, tree):
     return ParentK5()
 
 
-# the ssd_scan_launch of the K6 before its three phases (one kernel, no
-# scratch): x dt A B C y state, dtype BH S P N Q, stream
-PARENT_K6_ARGTYPES = ["p"] * 7 + ["i"] * 6 + ["p"]
-
-
-@functools.cache
-def parent_k6(torch, tree):
-    """K6 built from ``<tree>/src/repro_torch/csrc/ssd_scan.cu`` (another
-    checkout, e.g. the parent commit's) with this checkout's nvcc flags, as
+def parent_k6():
+    """K6 behind this checkout's wrapper with the parent's library, as
     ``scan(x, dt, A, B, C, chunk=...) -> (y, state)`` in the per-head
-    layout; None without a tree.  A source that has ``ssd_scan_plan`` takes
-    this checkout's C signature and wrapper, one without it the
-    single-kernel signature of :data:`PARENT_K6_ARGTYPES`."""
-    if tree is None:
+    layout; None without a parent.  The parent's ``ssd_scan.cu`` must
+    have this C interface (``ssd_scan_plan`` and the three phases)."""
+    c = _PARENT_LIBS.get("ssd_scan")
+    if c is None:
         return None
-    import ctypes
-    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import kernel
-    src = os.path.join(tree, "src", "repro_torch", "csrc", "ssd_scan.cu")
-    lib = _build.BUILD_DIR / "libssd_scan_parent.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    src], check=True, capture_output=True)
-    c = ctypes.CDLL(str(lib))
-    if hasattr(c, "ssd_scan_plan"):
+    if not hasattr(c, "ssd_scan_plan"):
+        fail("the parent's ssd_scan.cu has no ssd_scan_plan: it predates "
+             "the three-phase K6 and its C interface")
 
-        class ParentK6(kernel.SSDScan):
-            _lib = kernel._bind(c)
-        return ParentK6()
-    c.ssd_scan_launch.argtypes = [
-        ctypes.c_void_p if a == "p" else ctypes.c_int
-        for a in PARENT_K6_ARGTYPES]
-    c.ssd_scan_launch.restype = ctypes.c_int
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-
-    def scan(x, dt, A, B, C, *, chunk):
-        x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
-        bh, s, p = x.shape
-        n = B.shape[2]
-        y = torch.empty_like(x)
-        state = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
-        err = c.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), codes[x.dtype], bh,
-            s, p, n, chunk, torch.cuda.current_stream().cuda_stream)
-        if err:
-            fail(f"the parent's K6 ({tree}) refused its launch ({err})")
-        return y, state
-    return scan
+    class ParentK6(kernel.SSDScan):
+        _lib = kernel._bind(c)
+    return ParentK6()
 
 
 def k6_plan(torch, dtype, h, s, p, n, q, *, fill: bool) -> None:
@@ -1510,7 +1697,7 @@ def k6_plan(torch, dtype, h, s, p, n, q, *, fill: bool) -> None:
              f"{plan[2]['blocks']} blocks, fewer than the {sms} SMs")
 
 
-def timing_jobs(torch, sw, art, k5_parent, k6_parent=None) -> dict:
+def timing_jobs(torch, sw, art) -> dict:
     """Every kernel at its main path's shapes, with its plain version, its
     input sets (together past the 50 MB L2), its call counts (kernel n,
     warm-up; plain n, warm-up) and the bytes and fp32 instructions its
@@ -1536,6 +1723,9 @@ def timing_jobs(torch, sw, art, k5_parent, k6_parent=None) -> dict:
             bytes=S * roof["hbm_bytes_per_stream_step"],
             ops=S * roof["model_flops_per_stream_step"],
             what=f"S={S} (one {S * H * 4} B output block reused)")
+    parent = parent_k1(sw, dev)
+    if parent is not None:
+        jobs["q15_step"]["parent"] = parent
     scan = WindowScan(art.require_qp().dequantize(), dev)
     xsets = [(torch.randn(W_STEPS, W_BATCH, d, generator=g, device=dev),)
              for _ in range(2)]
@@ -1560,7 +1750,7 @@ def timing_jobs(torch, sw, art, k5_parent, k6_parent=None) -> dict:
     # kernels line's row: the Qwen head's decode, 8 x 1536 x 151,936); each
     # job's weight sets pass L2 together
     from repro_torch.kernels.q15_matmul.kernel import Q15Matmul, plain
-    mm, parent = Q15Matmul(), parent_k5(torch, k5_parent)
+    mm, parent = Q15Matmul(), parent_k5()
     heads = k5_heads()
     scale = torch.tensor(0.0021, device=dev)
     qwen = {}
@@ -1615,7 +1805,7 @@ def timing_jobs(torch, sw, art, k5_parent, k6_parent=None) -> dict:
     c = configs.get(SSM_ARCH)
     h, p, n, q = (2 * c.d_model // c.mamba_headdim, c.mamba_headdim,
                   c.ssm_state, c.ssd_chunk)
-    scan, k6_parent = SSDScan(), parent_k6(torch, k6_parent)
+    scan, k6_parent = SSDScan(), parent_k6()
 
     def k6_set(s, dtype):
         def rnd(*shape):
@@ -1693,7 +1883,7 @@ def ssd_least_work(h, g, s, p, n, *, tensor_cores: bool = True) -> tuple:
     return best
 
 
-def timing(torch, sw, art, k5_parent=None, k6_parent=None) -> dict:
+def timing(torch, sw, art, tree=None) -> dict:
     """Per-call times of every kernel and of its plain version at the
     shapes of its main path, side by side in one process: device time of
     calls queued behind a sleep (CUDA events) and the host's enqueue cost
@@ -1701,10 +1891,11 @@ def timing(torch, sw, art, k5_parent=None, k6_parent=None) -> dict:
     torch.profiler trace, and its bound: the larger of its bytes over
     3.35 TB/s and its fp32 instructions over their issue rate.
     Rounds run every kernel, then every plain version, and then both in
-    the reverse order."""
+    the reverse order.  With a parent ``tree`` (built in phase 2), its K1,
+    K5 and K6 run in turns beside this checkout's."""
     from torch.profiler import ProfilerActivity, profile
 
-    jobs = timing_jobs(torch, sw, art, k5_parent, k6_parent)
+    jobs = timing_jobs(torch, sw, art)
     cycles_per_ms = sleep_rate(torch)
     kern = {n: [] for n in jobs}
     plain = {n: [] for n in jobs}
@@ -1783,18 +1974,24 @@ def timing(torch, sw, art, k5_parent=None, k6_parent=None) -> dict:
                   f"library yardstick torch.mm of bfloat16 x against the "
                   f"weights in bfloat16 (the bytes of int16, not the same "
                   f"function) [{fmt(lib[n], 3)}] per call"))
+        if n == "q15_step":
+            print(f"timing {n}: " + (
+                f"the parent's K1 ({tree}, same card, in turns parent, K1, "
+                f"K1, parent) [{fmt(par[n], 3)}] per call: "
+                f"{min(r[0] for r in par[n]) / ms:.3f} x faster"
+                if n in par else "no parent K1 given"))
         if n.startswith("q15_matmul"):
             print(f"timing {n}: {job['bytes'] / ms / 1e6:,.0f} GB/s of its "
                   f"bytes; " + ("" if lib_ms is None else
                                 f"{ms / lib_ms:.3f} x the torch.mm "
                                 f"yardstick's time; ") + (
-                      f"the parent's K5 ({k5_parent}, same card, in turns "
+                      f"the parent's K5 ({tree}, same card, in turns "
                       f"parent, K5, K5, parent) [{fmt(par[n], 3)}] per "
                       f"call: {min(r[0] for r in par[n]) / ms:.3f} x faster"
                       if n in par else "no parent K5 given"))
         if n.startswith("ssd_scan"):
             print(f"timing {n}: " + (
-                f"the parent's K6 ({k6_parent}, same card, in turns "
+                f"the parent's K6 ({tree}, same card, in turns "
                 f"parent, K6, K6, parent) [{fmt(par[n], 3)}] per call: "
                 f"{min(r[0] for r in par[n]) / ms:.3f} x faster"
                 if n in par else "no parent K6 given"))
@@ -2189,11 +2386,11 @@ def lm_path(torch, np, dev, card) -> dict:
     return {"launches": out["k5"], "max_abs_err": out["k5_err"]}
 
 
-def ssm_path(torch, np, dev, card, k6_parent=None) -> dict:
+def ssm_path(torch, np, dev, card) -> dict:
     """Phase 13: mamba2-780m at full width: the engine over 24 requests
     whose prompts cross one to four SSD chunks, K5 and K6 held against
     their plain versions; a profiled window of decode ticks; a profiled
-    1000-token prefill (beside ``k6_parent``'s K6, with a parent tree);
+    1000-token prefill (beside the parent's K6, with a parent tree);
     the float32 slotted decode against ``forward`` over a prompt that
     spans two chunks."""
     from repro_torch import configs
@@ -2206,7 +2403,7 @@ def ssm_path(torch, np, dev, card, k6_parent=None) -> dict:
     lm_profiled_ticks(torch, np, eng, cfg.vocab_size, SSM_PROMPT[1],
                       LM_NEW[1], "SSM profiled window")
     lm_profiled_prefill(torch, np, eng, cfg.vocab_size, SSM_PROMPT[1],
-                        "SSM profiled prefill", parent_k6(torch, k6_parent))
+                        "SSM profiled prefill", parent_k6())
     del eng
     lm_decode_continuity(torch, np, dev, cfg, params, (57, 300), "SSM")
     return out
@@ -2417,20 +2614,19 @@ def lm_decode_continuity(torch, np, dev, cfg, params, lens, label) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def main() -> int:
+def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's paths on one "
                                  "CUDA card (see the module docstring).")
-    ap.add_argument("--k5-parent", metavar="TREE",
-                    help="also time the K5 of another checkout (e.g. the "
-                         "parent commit unpacked by git archive) beside "
-                         "this one, on the same card")
-    ap.add_argument("--k6-parent", metavar="TREE",
-                    help="also time the K6 of another checkout (its "
-                         "ssd_scan.cu, with this C signature or the "
-                         "single-kernel one of PARENT_K6_ARGTYPES) beside "
-                         "this one, on the same card")
-    args = ap.parse_args()
+    ap.add_argument("--parent", metavar="TREE",
+                    help="also time the K1, K5 and K6 of another checkout "
+                         "(e.g. the parent commit unpacked by git archive) "
+                         "beside this one's, on the same card")
+    return ap.parse_args(argv)
+
+
+def main() -> int:
+    args = parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -2445,10 +2641,12 @@ def main() -> int:
     from repro_torch.data import hapt
 
     card = environment(torch)
-    build()
+    build(args.parent)
     windows = hapt.generate_synthetic("test", SEED, n=8).windows
     dev = torch.device("cuda", 0)
     max_err = kernel_vs_plain(torch, windows, dev)
+    k1_plan(torch, dev)
+    k1_edges(torch, dev)
     dense_err = dense_vs_plain(torch, np, dev)
     lut_err = lut_vs_plain(torch, np, dev)
     window_err = window_vs_plain(torch, np, dev)
@@ -2472,11 +2670,11 @@ def main() -> int:
     fleet_path(torch, np, dev, art, feeds, single, mxu=False)
     del single
     failover(torch, np, dev, art, feeds)
-    t = timing(torch, sw, art, args.k5_parent, args.k6_parent)
+    t = timing(torch, sw, art, args.parent)
     del feeds, art
     lm = lm_path(torch, np, dev, card)
     torch.cuda.empty_cache()
-    ssm = ssm_path(torch, np, dev, card, args.k6_parent)
+    ssm = ssm_path(torch, np, dev, card)
     torch.cuda.empty_cache()
     hybrid_path(torch, np, dev, card)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"

@@ -4,7 +4,19 @@
   ``repro/kernels/fastgrnn_cell/kernel.py::_q15_step_kernel`` (the Pallas
   TPU kernel built by ``make_fastgrnn_step(mxu=False)``): one masked Q15
   FastGRNN step for S streams with int16 weights dequantized on use,
-  bitwise equal to the plain ``qstep.step_batched``.
+  bitwise equal to the plain ``qstep.step_batched``.  At the paper's width
+  (H = 16, d = 3; low rank r_w = 2, r_u = 8, or full rank) with h and the
+  output 16-byte aligned it runs an instantiation with every size fixed at
+  compile time: the row lives in registers (no stack frame), the weights
+  are read from shared memory as float4 broadcasts, and a persistent grid
+  (two blocks an SM) walks over tiles of 256 rows that one thread copies
+  in and out with bulk asynchronous copies, the next tile's in flight
+  while the block computes this one.  Every other width or alignment runs
+  the runtime-size kernel.  :meth:`FastGRNNStep.plan` reports which, with
+  the grid and the kernel's registers and local memory.  The sums keep the
+  plain version's order, every multiply and add is its own round-to-
+  nearest instruction, and the LUT bucket is the same, so both kernels
+  stay bitwise.
 * :class:`DenseStep` (``csrc/q15_step_dense.cu``) replaces
   ``_q15_step_kernel_mxu`` (``make_fastgrnn_step(mxu=True)``): the same
   step against pre-multiplied effective float32 W and U and without
@@ -66,9 +78,17 @@ _WINDOW_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I,   # x traj h T B H D
                     _P]                           # stream
 
 
+# what q15_step_plan writes, in its order
+PLAN_KEYS = ("fixed", "blocks", "threads", "tile_rows", "smem", "per_sm",
+             "local_bytes", "regs")
+_PLAN_ARGTYPES = [_I] * 6 + [_P, _P, ctypes.POINTER(_I)]   # ... h out plan
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.q15_step_launch.argtypes = _ARGTYPES
     lib.q15_step_launch.restype = _I
+    lib.q15_step_plan.argtypes = _PLAN_ARGTYPES
+    lib.q15_step_plan.restype = _I
     lib.q15_step_error_string.argtypes = [_I]
     lib.q15_step_error_string.restype = ctypes.c_char_p
     return lib
@@ -146,12 +166,43 @@ class FastGRNNStep:
         h_new = qstep.step_batched(self._arrs, self.sw, h, x)
         return torch.where(mask[:, None], h_new, h)
 
+    def plan(self, S: int, h: torch.Tensor, out: torch.Tensor) -> dict:
+        """What a launch of S rows reading ``h`` and writing ``out`` runs on
+        the current card (:data:`PLAN_KEYS`): the fixed-width code or not,
+        blocks, threads a block, rows a tile, shared memory bytes, resident
+        blocks an SM, and the chosen kernel's local memory (bytes a thread)
+        and registers a thread.  Launches nothing; needs the card (the
+        occupancy and the attributes are the card's answer)."""
+        if self.device.type != "cuda":
+            raise RuntimeError(f"plan: the kernel's plan comes from a CUDA "
+                               f"card; this step is built for {self.device}")
+        sw = self.sw
+        rw, ru = sw.ranks
+        vals = (_I * len(PLAN_KEYS))()
+        err = self._lib.q15_step_plan(S, sw.hidden_dim, sw.input_dim,
+                                      int(sw.low_rank), rw, ru, h.data_ptr(),
+                                      out.data_ptr(), vals)
+        if err != 0:
+            msg = self._lib.q15_step_error_string(err).decode()
+            raise ValueError(f"plan: the kernel does not take S={S} at this "
+                             f"width ({msg})")
+        return dict(zip(PLAN_KEYS, vals))
+
+    def fixed_width(self, h: torch.Tensor, out: torch.Tensor) -> bool:
+        """Whether a launch reading ``h`` and writing ``out`` runs the
+        kernel's instantiation with the sizes fixed at compile time (the
+        paper's width, h and out 16-byte aligned)."""
+        return bool(self.plan(h.shape[0], h, out)["fixed"])
+
     def __call__(self, h: torch.Tensor, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
         _check(self, h, x, mask)
         if h.device.type == "cpu":
             return self.plain(h, x, mask)
-        out = torch.empty_like(h)
+        return self._launch(h, x, mask, torch.empty_like(h))
+
+    def _launch(self, h, x, mask, out) -> torch.Tensor:
+        """Launch the kernel into ``out`` (checked inputs on the card)."""
         S = h.shape[0]
         sw = self.sw
         rw, ru = sw.ranks

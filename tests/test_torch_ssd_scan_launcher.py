@@ -73,4 +73,3 @@ def test_least_work_without_tensor_cores():
     ms32, q32, fp32_32, flop32 = cs.ssd_least_work(48, 1, 1000, 64, 128,
                                                    tensor_cores=False)
     assert flop32 == 0 and ms32 > ms and fp32_32 > fp32
-    assert cs.PARENT_K6_ARGTYPES == ["p"] * 7 + ["i"] * 6 + ["p"]
