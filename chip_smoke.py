@@ -4,9 +4,9 @@ card.
 
     python3 chip_smoke.py [--parent TREE]
 
-(``--parent``: also time the K1, K5 and K6 of another checkout, e.g. the
-parent commit unpacked by ``git archive``, beside this one's on the same
-card.)
+(``--parent``: also time the K1, K2, K5 and K6 of another checkout, e.g.
+the parent commit unpacked by ``git archive``, beside this one's on the
+same card.)
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -17,8 +17,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``q15_step_dense.cu`` K2, ``fastgrnn_window.cu`` K3, ``lut_act.cu``
    K4, ``q15_matmul.cu`` K5, ``ssd_scan.cu`` K6) with nvcc, one process
    per source, started together (with ``--parent``, the other checkout's
-   K1, K5 and K6 beside them); fails unless ptxas reports a 0-byte stack
-   frame for both fixed-width K1 instantiations.
+   K1, K2, K5 and K6 beside them); fails unless ptxas reports a 0-byte
+   stack frame for both fixed-width K1 instantiations and for K2's.
 3. K1 vs plain on the card: S = 131,072 streams at paper width, low- and
    full-rank, deployed / calibrated / naive activation storage, about a
    third of the rows masked, 2 % of them driven into LUT saturation, 128
@@ -38,6 +38,12 @@ Phases (any failure exits non-zero; nothing is caught):
    within 1e-6 of K1 after one step in deployed storage (the reference's
    bound for its dense layout) on 4,096 rows drawn like the reference's
    test; K2's runtime-width instantiation is checked at H = 12, d = 5.
+   ``DenseStep.plan`` at S = 131,072 is printed for both ranks (fails
+   unless the fixed code runs there with 0 bytes of local memory); then
+   the K2 edge check, three chained steps each, bitwise against
+   ``step_dense``: the runtime-width code at H = 12, d = 5, S = 1, 255 and
+   131,071 (a ragged last tile), h and out 4 bytes off a 16-byte boundary
+   (the runtime-width code), all rows masked and none.
    Then K4 vs ``core.lut.lut_eval`` bitwise for every fn x mode x
    {float32, bfloat16} on 2^24 values led by every edge (bucket edges,
    +-8 and their neighbours, +-0, +-inf, NaN), and on an unaligned view;
@@ -96,7 +102,8 @@ Phases (any failure exits non-zero; nothing is caught):
 8. the fleet main path on K2: ``FleetEngine.from_artifact`` with 4 shards
    x 32,768 slots, ``mxu=True``, the same streams, a live migration of 64
    streams and a decommission / recommission of one shard mid-run.  K2
-   launches must equal the ticks that advanced (one device group), no
+   launches must equal the ticks that advanced (one device group), every
+   one must run K2's fixed-width code, no
    h-state byte may go host-to-device on a steady tick, sampled streams'
    events must be bitwise those of a CPU fleet on ``step_dense``, and at
    least 99.9 % of the windows' predictions must equal the K1 engine's.
@@ -106,7 +113,8 @@ Phases (any failure exits non-zero; nothing is caught):
    card), and every K1 launch must run its fixed-width code.
 10. failover: 4 shards x 4,096 slots on K2, snapshots every 16 ticks, one
     crash at each tick phase; the events must be bitwise those of the same
-    run without crashes.  The width is cut from 131,072 because every
+    run without crashes, and every K2 launch of both runs must run its
+    fixed-width code.  The width is cut from 131,072 because every
     snapshot encodes each live stream in Python.
 11. time every kernel and its plain version at its main path's shapes
     (K1/K2 at S = 131,072; K3 at B = 131,072 x T = 128; K4 over 2^26
@@ -121,7 +129,7 @@ Phases (any failure exits non-zero; nothing is caught):
     converted to bfloat16 beforehand as the library yardstick of its bytes
     (not the same function: no integer weights, no scale); its
     operations count as bfloat16 tensor-core FLOP over 989 T/s.  With
-    ``--parent`` the other checkout's K1, K5 and K6 run in turns beside
+    ``--parent`` the other checkout's K1, K2, K5 and K6 run in turns beside
     this checkout's (parent, kernel, then kernel, parent), each bound
     through this checkout's wrapper.  K6 at b = 1 x
     S = 1000 at mamba2-780m width in bfloat16 (four input sets of 31 MB),
@@ -311,9 +319,10 @@ KERNELS = ("q15_step", "q15_step_dense", "fastgrnn_window", "lut_act",
 
 def build(parent=None) -> None:
     """Every kernel, one nvcc each, started together (with ``parent``, the
-    other checkout's K1, K5 and K6 too); each one's build time and what
+    other checkout's K1, K2, K5 and K6 too); each one's build time and what
     ptxas reports of its registers, shared memory and spills.  Fails
-    unless both fixed-width K1 instantiations have a 0-byte stack frame."""
+    unless both fixed-width K1 instantiations and K2's have a 0-byte stack
+    frame."""
     from repro_torch.kernels import _build
     if tuple(sorted(_build.kernel_names())) != tuple(sorted(KERNELS)):
         fail(f"kernel sources {_build.kernel_names()} != {sorted(KERNELS)}")
@@ -329,17 +338,29 @@ def build(parent=None) -> None:
                                        "stack frame")):
                 print(f"  {line.strip()}")
     print(f"build: {len(built)} kernels in {wall:.2f} s (parallel nvcc)")
-    frames = k1_fixed_frames(built["q15_step"][2])
-    if built["q15_step"][1] and (len(frames) != 2 or any(frames.values())):
-        fail(f"K1's fixed-width instantiations' stack frames {frames}, want "
-             "two of 0 bytes")
-    print(f"build: K1 fixed-width stack frames {frames} (bytes)")
+    for name, label, kernel, n in (
+            ("q15_step", "K1", K1_FIXED, 2),
+            ("q15_step_dense", "K2", K2_FIXED, 1)):
+        frames = fixed_frames(built[name][2], kernel)
+        if built[name][1] and (len(frames) != n or any(frames.values())):
+            fail(f"{label}'s fixed-width instantiations' stack frames "
+                 f"{frames}, want {n} of 0 bytes")
+        print(f"build: {label} fixed-width stack frames {frames} (bytes)")
+
+
+K1_FIXED = "q15_step_kernel_fixed"         # the fixed-width entries' names
+K2_FIXED = "q15_step_dense_kernel_fixed"
 
 
 def k1_fixed_frames(log: str) -> dict:
-    """{instantiation: stack frame bytes} of K1's fixed-width kernels in a
-    ptxas -v log (the entry names are mangled: ILi16ELi3ELi2ELi8E is
-    <16, 3, 2, 8>)."""
+    """:func:`fixed_frames` of K1's fixed-width kernels."""
+    return fixed_frames(log, K1_FIXED)
+
+
+def fixed_frames(log: str, kernel: str) -> dict:
+    """{instantiation: stack frame bytes} of the fixed-width kernels named
+    ``kernel`` in a ptxas -v log (the entry names are mangled:
+    ILi16ELi3ELi2ELi8E is <16, 3, 2, 8>)."""
     import re
     frames, entry = {}, None
     for line in log.splitlines():
@@ -348,7 +369,7 @@ def k1_fixed_frames(log: str) -> dict:
             entry = m.group(1)
             continue
         m = re.search(r"(\d+) bytes stack frame", line)
-        if m and entry and "q15_step_kernel_fixed" in entry:
+        if m and entry and re.search(rf"\d{kernel}I", entry):
             args = re.search(r"I((?:Li\d+E)+)E", entry)
             key = ",".join(re.findall(r"Li(\d+)E", args.group(1))) \
                 if args else entry
@@ -461,7 +482,7 @@ def k1_plan(torch, dev) -> None:
                  f"with none")
 
 
-K1_EDGE_STEPS = 3   # chained steps a K1 edge case
+EDGE_STEPS = 3      # chained steps a K1 or K2 edge case
 
 
 def k1_edges(torch, dev) -> None:
@@ -470,21 +491,28 @@ def k1_edges(torch, dev) -> None:
     (H = 12, d = 5; r_w = 3, r_u = 5), S = 1, 255 (Q15 storage) and
     131,071 (a ragged last tile), h and out 4 bytes off a 16-byte boundary
     (the runtime-width code), all rows masked and none."""
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    paper = k1_step(dev)
-    cases = (  # label, step, S, mask, h/out 4 B off 16 B, fixed-width code
+    edge_steps(torch, dev, "K1", k1_step(dev), (
         ("H=12, d=5", k1_step(dev, hidden_dim=12, input_dim=5), 4_096,
          "third", False, False),
         ("r_w=3, r_u=5", k1_step(dev, rank_w=3, rank_u=5), 4_096, "third",
          False, False),
-        ("S=1", paper, 1, "third", False, True),
+        ("S=1", None, 1, "third", False, True),
         ("S=255, naive storage", k1_step(dev, naive=True), 255, "third",
          False, True),
-        (f"S={S_KERNEL - 1:,}", paper, S_KERNEL - 1, "third", False, True),
-        ("h, out 4 B off 16 B", paper, 4_096, "third", True, False),
-        ("all rows masked", paper, 4_096, "all", False, True),
-        ("no row masked", paper, 4_096, "none", False, True))
+        (f"S={S_KERNEL - 1:,}", None, S_KERNEL - 1, "third", False, True),
+        ("h, out 4 B off 16 B", None, 4_096, "third", True, False),
+        ("all rows masked", None, 4_096, "all", False, True),
+        ("no row masked", None, 4_096, "none", False, True)))
+
+
+def edge_steps(torch, dev, name: str, paper, cases) -> None:
+    """Each case (label, step or None for ``paper``, S, mask: "third" /
+    "all" / "none", h and out 4 B off 16 B, fixed-width code wanted):
+    ``EDGE_STEPS`` chained launches bitwise against the step's plain
+    version, the first asserting which code ran."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
     for label, k, n, masked, offset, want_fixed in cases:
+        k = paper if k is None else k
         H, d = k.sw.hidden_dim, k.sw.input_dim
 
         def state():
@@ -493,7 +521,7 @@ def k1_edges(torch, dev) -> None:
             return torch.empty(n * H + 1, device=dev)[1:].view(n, H)
         h = state()
         h.copy_(0.5 * torch.randn(n, H, generator=g, device=dev))
-        for t in range(K1_EDGE_STEPS):
+        for t in range(EDGE_STEPS):
             big = torch.rand(n, 1, generator=g, device=dev) < 0.02
             x = torch.randn(n, d, generator=g, device=dev) \
                 * torch.where(big, 200.0, 1.0)
@@ -502,35 +530,44 @@ def k1_edges(torch, dev) -> None:
                  "none": torch.ones(n, dtype=torch.bool, device=dev)}[masked]
             out = k._launch(h, x, m, state())
             if t == 0 and k.fixed_width(h, out) != want_fixed:
-                fail(f"K1 edge {label}: fixed-width code "
+                fail(f"{name} edge {label}: fixed-width code "
                      f"{k.fixed_width(h, out)}, want {want_fixed}")
             want = k.plain(h, x, m)
             if not bits_equal(out, want):
-                fail(f"K1 edge {label}, step {t}: {first_diff(out, want)}")
+                fail(f"{name} edge {label}, step {t}: {first_diff(out, want)}")
             h = out
         torch.cuda.synchronize()
-        print(f"K1==plain bitwise, edge {label}: S={n} x {K1_EDGE_STEPS} "
+        print(f"{name}==plain bitwise, edge {label}: S={n} x {EDGE_STEPS} "
               f"steps ({'fixed' if want_fixed else 'runtime'}-width code)")
 
 
 class FixedCount:
-    """A K1 wrapper's library seen through, to show which code its launches
-    ran: each ``q15_step_launch`` first asks ``q15_step_plan`` (the plan the
-    launch itself makes) for its h and out, and counts those that run the
+    """A K1 or K2 wrapper's library seen through, to show which code its
+    launches ran: each ``q15_step_launch`` (``q15_step_dense_launch``)
+    first asks ``q15_step_plan`` (``q15_step_dense_plan``), the plan the
+    launch itself makes, for its h and out, and counts those that run the
     fixed-width code.  It launches nothing of its own."""
 
     def __init__(self, lib):
         self._lib, self.fixed = lib, 0
 
-    def q15_step_launch(self, h, x, mask, out, S, H, D, low_rank, RW, RU,
-                        *rest):
+    def _count(self, query, S, *args) -> None:
         import ctypes
         plan = (ctypes.c_int * 8)()
-        if S and self._lib.q15_step_plan(S, H, D, low_rank, RW, RU, h, out,
-                                         plan) == 0:
+        if S and query(S, *args, plan) == 0:
             self.fixed += plan[0]
+
+    def q15_step_launch(self, h, x, mask, out, S, H, D, low_rank, RW, RU,
+                        *rest):
+        self._count(self._lib.q15_step_plan, S, H, D, low_rank, RW, RU, h,
+                    out)
         return self._lib.q15_step_launch(h, x, mask, out, S, H, D, low_rank,
                                          RW, RU, *rest)
+
+    def q15_step_dense_launch(self, h, x, mask, out, S, H, D, *rest):
+        self._count(self._lib.q15_step_dense_plan, S, H, D, h, out)
+        return self._lib.q15_step_dense_launch(h, x, mask, out, S, H, D,
+                                               *rest)
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
@@ -616,6 +653,52 @@ def dense_vs_plain(torch, np, dev) -> float:
     print(f"K2==plain dense bitwise at H=12, d=5 (runtime-width code), "
           f"{CPU_ROWS} rows")
     return max_err
+
+
+def k2_step(dev, **shape):
+    """A K2 wrapper for seeded Q15 weights at ``weights.random_params``'
+    shape keywords (default: the paper's width, low rank)."""
+    from repro_torch import weights
+    from repro_torch.core.quantization import QuantConfig, quantize_params
+    from repro_torch.kernels.fastgrnn_cell import qstep
+    from repro_torch.kernels.fastgrnn_cell.kernel import DenseStep
+    qp = quantize_params(weights.random_params(SEED, **shape), QuantConfig())
+    return DenseStep(qstep.StepWeights.from_quantized(qp), dev)
+
+
+def k2_plan(torch, dev) -> None:
+    """``DenseStep.plan`` at S = 131,072 (phase 4's and the fleet's S) for
+    the low- and full-rank weights; fails unless the fixed code runs there
+    with no local memory."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for low_rank in (True, False):
+        k = k2_step(dev, low_rank=low_rank)
+        h = torch.empty(S_KERNEL, k.sw.hidden_dim, device=dev)
+        pl = k.plan(S_KERNEL, h, torch.empty_like(h))
+        print(f"K2 plan at S={S_KERNEL}, {'low' if low_rank else 'full'} "
+              f"rank ({sms} SMs): " + ", ".join(f"{key} {v}" for key, v in
+                                                pl.items()))
+        if not pl["fixed"] or pl["local_bytes"]:
+            fail(f"K2 at paper width: fixed {pl['fixed']}, local memory "
+                 f"{pl['local_bytes']} B a thread; want the fixed-width code "
+                 f"with none")
+
+
+def k2_edges(torch, dev) -> None:
+    """K2 bitwise against ``step_dense``, for a few chained steps each, on
+    the branches phase 4's shapes do not reach: the runtime-width code
+    (H = 12, d = 5), S = 1, 255 and 131,071 (a ragged last tile), h and out
+    4 bytes off a 16-byte boundary (the runtime-width code), all rows
+    masked and none."""
+    edge_steps(torch, dev, "K2", k2_step(dev), (
+        ("H=12, d=5", k2_step(dev, hidden_dim=12, input_dim=5), 4_096,
+         "third", False, False),
+        ("S=1", None, 1, "third", False, True),
+        ("S=255", None, 255, "third", False, True),
+        (f"S={S_KERNEL - 1:,}", None, S_KERNEL - 1, "third", False, True),
+        ("h, out 4 B off 16 B", None, 4_096, "third", True, False),
+        ("all rows masked", None, 4_096, "all", False, True),
+        ("no row masked", None, 4_096, "none", False, True)))
 
 
 # ---------------------------------------------------------------------------
@@ -1288,6 +1371,26 @@ def fleet_kernels(fleet) -> list:
             + [sh.kernel.kernel for sh in fleet.shards])
 
 
+def count_fixed(kernels) -> None:
+    """Zero each step wrapper's launches and see its library through a
+    :class:`FixedCount` (a wrapper seen through already is left as it
+    is)."""
+    for k in kernels:
+        if not isinstance(k._lib, FixedCount):
+            k._lib = FixedCount(k._lib)
+            k.launches = 0
+
+
+def read_fixed(kernels) -> tuple:
+    """(launches, fixed-width launches) of wrappers that
+    :func:`count_fixed` set up, whose libraries it gives back."""
+    launches = sum(k.launches for k in kernels)
+    fixed = sum(k._lib.fixed for k in kernels)
+    for k in kernels:
+        k._lib = k._lib._lib
+    return launches, fixed
+
+
 def totals(feeds, i: int):
     kind = feeds.kind(i)
     return None if kind == "detach" else (256 if kind == "two" else 128)
@@ -1392,19 +1495,11 @@ def fleet_path(torch, np, dev, art, feeds, single, *, mxu: bool) -> dict:
     if len(fleet._group_list) != 1:
         fail(f"{len(fleet._group_list)} device groups on one card, want 1")
     kernels = fleet_kernels(fleet)
-    libs = [k._lib for k in kernels]
-    if not mxu:
-        for k in kernels:
-            k._lib = FixedCount(k._lib)
-    for k in kernels:
-        k.launches = 0                  # count this path's run only
+    count_fixed(kernels)                # count this path's run only
     events, ticks, wall, steady, advancing, report = drive_fleet(
         torch, fleet, feeds, ids, verbs=True)
-    launches = sum(k.launches for k in kernels)
-    fixed = sum(k._lib.fixed for k in kernels) if not mxu else None
-    for k, lib in zip(kernels, libs):
-        k._lib = lib
-    if not mxu and fixed != launches:
+    launches, fixed = read_fixed(kernels)
+    if fixed != launches:
         fail(f"{name}: the fixed-width code ran on {fixed} of {launches} "
              f"launches")
     setup = time.perf_counter() - t0 - wall
@@ -1452,7 +1547,8 @@ def fleet_path(torch, np, dev, art, feeds, single, *, mxu: bool) -> dict:
         share = same / n
         print(f"fleet {name}: {len(sample)} sampled streams bitwise equal to "
               f"the CPU fleet on step_dense; {same} of {n} windows "
-              f"({share:.4%}) predict as the K1 engine")
+              f"({share:.4%}) predict as the K1 engine; K2's fixed-width "
+              f"code on {fixed} of {launches} launches")
         if share < MIN_AGREEMENT:
             fail(f"{name}: prediction agreement {share:.4%} < "
                  f"{MIN_AGREEMENT:.1%}")
@@ -1490,13 +1586,21 @@ def fleet_path(torch, np, dev, art, feeds, single, *, mxu: bool) -> dict:
 
 def failover(torch, np, dev, art, feeds) -> None:
     """Failover on the card (K2): one crash at each tick phase against the
-    same run without crashes, every event bitwise."""
+    same run without crashes, every event bitwise; every K2 launch of both
+    runs (a crashed shard's replacement too) runs the fixed-width code."""
     from repro_torch.serve.fleet import (FleetConfig, FleetEngine,
                                          ScheduledFaults)
     from repro_torch.serve.streaming import StreamingConfig
 
     ids = range(SHARDS * FO_SLOTS)
-    logs, recovery = {}, []
+    logs, recovery, seen = {}, [], []
+
+    def watch(fleet):
+        """Count the launches of every step wrapper the fleet has now."""
+        kernels = fleet_kernels(fleet)
+        count_fixed(kernels)
+        seen.extend(k for k in kernels if k not in seen)
+
     for crashes in (True, False):
         fleet = FleetEngine.from_artifact(art, FleetConfig(
             shards=SHARDS, max_pending_per_shard=0,
@@ -1505,12 +1609,14 @@ def failover(torch, np, dev, art, feeds) -> None:
                                    device=dev, mxu=True)),
             faults=ScheduledFaults(schedule=FO_CRASHES) if crashes else None)
         crash = fleet.crash_shard
+        watch(fleet)
 
         def timed(shard, phase=None):
             t0 = time.perf_counter()
             out = crash(shard, phase=phase)
             torch.cuda.synchronize()
             recovery.append((time.perf_counter() - t0, out))
+            watch(fleet)
             return out
 
         fleet.crash_shard = timed
@@ -1532,6 +1638,10 @@ def failover(torch, np, dev, art, feeds) -> None:
         del fleet
     if len(recovery) != len(FO_CRASHES):
         fail(f"{len(recovery)} crashes ran, want {len(FO_CRASHES)}")
+    launches, fixed = read_fixed(seen)
+    if not launches or fixed != launches:
+        fail(f"failover: K2's fixed-width code ran on {fixed} of {launches} "
+             "launches")
     if logs[True] != logs[False]:
         bad = next(s for s in logs[False] if logs[True][s] != logs[False][s])
         fail(f"failover: stream {bad} events differ from the run without "
@@ -1542,7 +1652,8 @@ def failover(torch, np, dev, art, feeds) -> None:
               f"({rep['replayed_samples']} samples to replay, "
               f"{rep['wire_bytes']} wire bytes) in {dt * 1e3:.1f} ms")
     print(f"failover: all {len(logs[False])} streams' events bitwise equal "
-          "to the run without crashes")
+          f"to the run without crashes; K2's fixed-width code on {fixed} of "
+          f"{launches} launches")
 
 
 # ---------------------------------------------------------------------------
@@ -1585,7 +1696,7 @@ def queued(torch, fn, sets, n: int, warm: int, cycles_per_ms: float):
 
 
 # the kernels that --parent times beside this checkout's
-PARENT_KERNELS = ("q15_step", "q15_matmul", "ssd_scan")
+PARENT_KERNELS = ("q15_step", "q15_step_dense", "q15_matmul", "ssd_scan")
 
 
 def start_parent_builds(tree) -> dict:
@@ -1619,8 +1730,8 @@ def finish_parent_builds(tree, procs: dict) -> None:
             fail(f"the parent's {name}.cu ({tree}) does not build:\n{log}")
         _PARENT_LIBS[name] = ctypes.CDLL(str(lib))
         for line in log.splitlines():
-            if name == "q15_step" and ("stack frame" in line
-                                       or "registers" in line):
+            if name.startswith("q15_step") and ("stack frame" in line
+                                                or "registers" in line):
                 print(f"  parent {name}: {line.strip()}")
     if procs:
         print(f"build: the parent's {', '.join(procs)} from {tree}")
@@ -1640,6 +1751,25 @@ def parent_k1(sw, dev):
     c.q15_step_error_string.argtypes = [ctypes.c_int]
     c.q15_step_error_string.restype = ctypes.c_char_p
     step = kernel.FastGRNNStep(sw, dev)
+    step._lib = c
+    return step
+
+
+def parent_k2(sw, dev):
+    """A :class:`DenseStep` for ``sw`` whose launches run the parent's K2
+    (its ``q15_step_dense_launch``, the same C signature, bound through
+    this wrapper's ``kernel._DENSE_ARGTYPES``; no plan query); None without
+    a parent."""
+    c = _PARENT_LIBS.get("q15_step_dense")
+    if c is None:
+        return None
+    import ctypes
+    from repro_torch.kernels.fastgrnn_cell import kernel
+    c.q15_step_dense_launch.argtypes = kernel._DENSE_ARGTYPES
+    c.q15_step_dense_launch.restype = ctypes.c_int
+    c.q15_step_dense_error_string.argtypes = [ctypes.c_int]
+    c.q15_step_dense_error_string.restype = ctypes.c_char_p
+    step = kernel.DenseStep(sw, dev)
     step._lib = c
     return step
 
@@ -1723,9 +1853,10 @@ def timing_jobs(torch, sw, art) -> dict:
             bytes=S * roof["hbm_bytes_per_stream_step"],
             ops=S * roof["model_flops_per_stream_step"],
             what=f"S={S} (one {S * H * 4} B output block reused)")
-    parent = parent_k1(sw, dev)
-    if parent is not None:
-        jobs["q15_step"]["parent"] = parent
+    for name, parent in (("q15_step", parent_k1(sw, dev)),
+                         ("q15_step_dense", parent_k2(sw, dev))):
+        if parent is not None:
+            jobs[name]["parent"] = parent
     scan = WindowScan(art.require_qp().dequantize(), dev)
     xsets = [(torch.randn(W_STEPS, W_BATCH, d, generator=g, device=dev),)
              for _ in range(2)]
@@ -1892,7 +2023,7 @@ def timing(torch, sw, art, tree=None) -> dict:
     3.35 TB/s and its fp32 instructions over their issue rate.
     Rounds run every kernel, then every plain version, and then both in
     the reverse order.  With a parent ``tree`` (built in phase 2), its K1,
-    K5 and K6 run in turns beside this checkout's."""
+    K2, K5 and K6 run in turns beside this checkout's."""
     from torch.profiler import ProfilerActivity, profile
 
     jobs = timing_jobs(torch, sw, art)
@@ -1974,12 +2105,13 @@ def timing(torch, sw, art, tree=None) -> dict:
                   f"library yardstick torch.mm of bfloat16 x against the "
                   f"weights in bfloat16 (the bytes of int16, not the same "
                   f"function) [{fmt(lib[n], 3)}] per call"))
-        if n == "q15_step":
+        if n in ("q15_step", "q15_step_dense"):
+            k = "K1" if n == "q15_step" else "K2"
             print(f"timing {n}: " + (
-                f"the parent's K1 ({tree}, same card, in turns parent, K1, "
-                f"K1, parent) [{fmt(par[n], 3)}] per call: "
+                f"the parent's {k} ({tree}, same card, in turns parent, {k}, "
+                f"{k}, parent) [{fmt(par[n], 3)}] per call: "
                 f"{min(r[0] for r in par[n]) / ms:.3f} x faster"
-                if n in par else "no parent K1 given"))
+                if n in par else f"no parent {k} given"))
         if n.startswith("q15_matmul"):
             print(f"timing {n}: {job['bytes'] / ms / 1e6:,.0f} GB/s of its "
                   f"bytes; " + ("" if lib_ms is None else
@@ -2619,9 +2751,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="Drive the port's paths on one "
                                  "CUDA card (see the module docstring).")
     ap.add_argument("--parent", metavar="TREE",
-                    help="also time the K1, K5 and K6 of another checkout "
-                         "(e.g. the parent commit unpacked by git archive) "
-                         "beside this one's, on the same card")
+                    help="also time the K1, K2, K5 and K6 of another "
+                         "checkout (e.g. the parent commit unpacked by git "
+                         "archive) beside this one's, on the same card")
     return ap.parse_args(argv)
 
 
@@ -2648,6 +2780,8 @@ def main() -> int:
     k1_plan(torch, dev)
     k1_edges(torch, dev)
     dense_err = dense_vs_plain(torch, np, dev)
+    k2_plan(torch, dev)
+    k2_edges(torch, dev)
     lut_err = lut_vs_plain(torch, np, dev)
     window_err = window_vs_plain(torch, np, dev)
     q15_vs_plain(torch, np, dev)

@@ -20,18 +20,36 @@
 // kernel it stores no activation in Q15 in any mode.  Every multiply and
 // add is an explicit round-to-nearest intrinsic and the file is built with
 // --fmad=false, so the result is bitwise equal to the plain version.  No
-// tensor core is used: TF32 would break the plain version's bitwise
-// contract and the reference's 1e-6 step tolerance.
+// tensor core is used: TF32, or a 3xTF32 split, would change the rounding
+// of the ascending-j float32 sums.
 //
 // Bound: HBM bytes.  Per stream-step it reads x (D*4 = 12 B), h (H*4 =
 // 64 B) and the mask byte and writes h' (64 B): 141 B, about 18.5 MB per
 // step at S = 131,072, 5.5 us at 3.35 TB/s, against 2(DH + HH) + 10H =
-// 768 operations (~1.5 us at the fp32 rate).  The effective weights and
-// both 256-entry LUTs live in shared memory (3,392 B at H = 16, D = 3).
-// One thread owns one stream row.  For the paper's width (H = 16, D = 3)
-// the kernel is instantiated with both sizes fixed, so the row and the
-// loops live in registers and h moves as 16-byte vectors; any other width
-// runs the same code with runtime sizes.
+// 768 operations (~1.5 us at the fp32 rate).  The instructions come close
+// behind the bytes: with the LUT indexing, the weight reads and the data
+// movement the card issues well over 1,100 a row, so the design overlaps
+// the cell with the copies as finely as it can.
+//
+// Two kernels:
+//
+// * q15_step_dense_kernel_fixed<16, 3> runs the paper's width (H = 16,
+//   d = 3) when h and out are 16-byte aligned, whatever the rank of the
+//   model: the dense layout always multiplies by the H x d and H x H
+//   effective matrices.  Its cell is K1's full-rank deployed cell (no
+//   storage), on the tiled persistent pipeline of step_tiles.cuh: the row
+//   in registers, the weights read from 16-byte padded shared rows as
+//   float4 broadcasts, tiles of 256 rows of h moved in and out by bulk
+//   asynchronous copies (the next tile's in flight), x and the mask one
+//   tile ahead, inactive rows taking h by a select, a persistent grid of
+//   two blocks an SM with an even split of tiles, and the block's
+//   constants loaded in one round before the first tile's copy.
+//   Unlike K1 a tile moves in eight parts, one a warp (2 KB, its own
+//   mbarriers): a warp starts on its rows as soon as they land and copies
+//   them out as soon as it has written them, with no block barrier, so
+//   the cell overlaps the other warps' copies.
+// * q15_step_dense_kernel_any runs every other width or alignment: one
+//   thread a row, sizes at run time.
 //
 // Plain C interface (loaded with ctypes); launches on the given stream,
 // allocates nothing and returns cudaGetLastError().
@@ -40,13 +58,24 @@
 #include <stdint.h>
 
 #include "fastgrnn_cell.cuh"
+#include "step_tiles.cuh"
 
 namespace {
 
+using step_tiles::cell;
+using step_tiles::Constants;
+using step_tiles::kLut;
+using step_tiles::kTile;
+using step_tiles::Layout;
+using step_tiles::NoStorage;
+using step_tiles::Plan;
+using step_tiles::tile_loop;
+
 constexpr int kMaxH = 64;
 constexpr int kMaxD = 16;
-constexpr int kLut = fastgrnn_cell::kLut;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;          // q15_step_dense_kernel_any
+constexpr int kWarps = kTile / 32;     // a fixed-width tile moves a warp's
+                                       // rows at a time
 
 struct DenseParams {
   const float* h;          // (S, H)
@@ -63,17 +92,13 @@ struct DenseParams {
   float zeta, nu;
 };
 
-// kH = kD = 0: sizes from the parameters; otherwise fixed at compile time
-// (then kH % 4 == 0 and h / out are 16-byte aligned, checked by the
-// launcher).
-template <int kH, int kD>
+// ---------------------------------------------------------------------------
+// q15_step_dense_kernel_any: every width, one thread a row
+// ---------------------------------------------------------------------------
+
 __global__ void __launch_bounds__(kThreads)
-q15_step_dense_kernel(DenseParams p) {
-  constexpr bool kFixed = kH > 0;
-  constexpr int kRowH = kFixed ? kH : kMaxH;
-  constexpr int kRowD = kFixed ? kD : kMaxD;
-  const int H = kFixed ? kH : p.H;
-  const int D = kFixed ? kD : p.D;
+q15_step_dense_kernel_any(DenseParams p) {
+  const int H = p.H, D = p.D;
   extern __shared__ float smem[];
   float* sig = smem;
   float* tnh = sig + kLut;
@@ -96,74 +121,82 @@ q15_step_dense_kernel(DenseParams p) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.S) return;
   const size_t hoff = static_cast<size_t>(b) * H;
-  float h[kRowH];
-  if constexpr (kFixed) {
-    const float4* src = reinterpret_cast<const float4*>(p.h + hoff);
-#pragma unroll
-    for (int j = 0; j < kRowH / 4; ++j) {
-      const float4 v = src[j];
-      h[4 * j] = v.x;
-      h[4 * j + 1] = v.y;
-      h[4 * j + 2] = v.z;
-      h[4 * j + 3] = v.w;
-    }
-  } else {
-    for (int j = 0; j < H; ++j) h[j] = p.h[hoff + j];
+  if (p.mask[b] == 0) {  // inactive stream: copy its state bit for bit
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(p.h) + hoff;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(p.out) + hoff;
+    for (int i = 0; i < H; ++i) dst[i] = src[i];
+    return;
   }
-
-  // With fixed sizes every loop below has a constant trip count and is
-  // unrolled completely (#pragma unroll), so h, x and hn live in
-  // registers; with runtime sizes the pragma leaves the loops as they are.
-  float hn[kRowH];
-  if (p.mask[b] == 0) {  // inactive stream: keep its state bit for bit
-#pragma unroll
-    for (int i = 0; i < H; ++i) hn[i] = h[i];
-  } else {
-    float x[kRowD];
-#pragma unroll
-    for (int j = 0; j < D; ++j) x[j] = p.x[static_cast<size_t>(b) * D + j];
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      float wx = 0.0f;
-#pragma unroll
-      for (int j = 0; j < D; ++j)
-        wx = __fadd_rn(wx, __fmul_rn(x[j], w[i * D + j]));
-      float uh = 0.0f;
-#pragma unroll
-      for (int j = 0; j < H; ++j)
-        uh = __fadd_rn(uh, __fmul_rn(h[j], u[i * H + j]));
-      const float pre = __fadd_rn(wx, uh);
-      const float z = fastgrnn_cell::lut_nearest(sig, __fadd_rn(pre, bz[i]));
-      const float ht = fastgrnn_cell::lut_nearest(tnh, __fadd_rn(pre, bh[i]));
-      hn[i] = fastgrnn_cell::gate(z, ht, h[i], p.zeta, p.nu);
-    }
-  }
-
-  if constexpr (kFixed) {
-    float4* dst = reinterpret_cast<float4*>(p.out + hoff);
-#pragma unroll
-    for (int j = 0; j < kRowH / 4; ++j)
-      dst[j] = make_float4(hn[4 * j], hn[4 * j + 1], hn[4 * j + 2],
-                           hn[4 * j + 3]);
-  } else {
-    for (int i = 0; i < H; ++i) p.out[hoff + i] = hn[i];
+  float h[kMaxH];
+  float x[kMaxD];
+  for (int j = 0; j < H; ++j) h[j] = p.h[hoff + j];
+  for (int j = 0; j < D; ++j) x[j] = p.x[static_cast<size_t>(b) * D + j];
+  for (int i = 0; i < H; ++i) {
+    float wx = 0.0f;
+    for (int j = 0; j < D; ++j)
+      wx = __fadd_rn(wx, __fmul_rn(x[j], w[i * D + j]));
+    float uh = 0.0f;
+    for (int j = 0; j < H; ++j)
+      uh = __fadd_rn(uh, __fmul_rn(h[j], u[i * H + j]));
+    const float pre = __fadd_rn(wx, uh);
+    const float z = fastgrnn_cell::lut_nearest(sig, __fadd_rn(pre, bz[i]));
+    const float ht = fastgrnn_cell::lut_nearest(tnh, __fadd_rn(pre, bh[i]));
+    p.out[hoff + i] = fastgrnn_cell::gate(z, ht, h[i], p.zeta, p.nu);
   }
 }
 
-// The fixed-size instantiation serves the paper's width when h and out
-// take 16-byte vector loads and stores.
+// ---------------------------------------------------------------------------
+// q15_step_dense_kernel_fixed: the paper's width, on step_tiles.cuh's
+// pipeline
+// ---------------------------------------------------------------------------
+
+// Two blocks an SM (at most 128 registers a thread), as K1.
+template <int kH, int kD>
+__global__ void __launch_bounds__(kTile, 2)
+q15_step_dense_kernel_fixed(DenseParams p) {
+  using L = Layout<kH, kD, 0, 0, kWarps>;
+  using C = Constants<L>;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  // the effective weights as one flat index space: W, then U
+  C cst;
+  cst.fetch(p, threadIdx.x, [&](int i) {
+    if (i < C::nA) return p.w[i];
+    if (i < C::nW) return p.u[i - C::nA];
+    return 0.0f;
+  });
+  tile_loop<L>(p, sm, cst, [&](const float (&x)[kD], const float (&h)[kH],
+                               float (&hn)[kH]) {
+    cell<L>(sm, NoStorage{}, p.zeta, p.nu, x, h, hn);
+  });
+}
+
+// The fixed-width kernel serves the paper's width when h and out are
+// 16-byte aligned: the bulk copies and the 16-byte row chunks need it.
 bool fixed_width(int H, int D, const float* h, const float* out) {
   return H == 16 && D == 3 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(out) % 16 == 0;
 }
 
-template <int kH, int kD>
-cudaError_t launch(const DenseParams& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * kLut + 2 * p.H + p.H * p.D +
-                                       p.H * p.H);
-  const int blocks = (p.S + kThreads - 1) / kThreads;
-  q15_step_dense_kernel<kH, kD><<<blocks, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+// The plan of a launch (S >= 1); with `report`, the runtime-width kernel's
+// resident blocks an SM too (its grid does not need them).
+cudaError_t make_plan(int S, int H, int D, const float* h, const float* out,
+                      bool report, Plan* pl) {
+  if (!fixed_width(H, D, h, out)) {
+    *pl = {reinterpret_cast<const void*>(&q15_step_dense_kernel_any), 0,
+           (S + kThreads - 1) / kThreads, kThreads, kThreads, 0,
+           sizeof(float) * (2 * kLut + 2 * H + H * D + H * H)};
+    int sms = 0;
+    return report ? step_tiles::occupancy(*pl, -1, &pl->per_sm, &sms)
+                  : cudaSuccess;
+  }
+  *pl = {reinterpret_cast<const void*>(&q15_step_dense_kernel_fixed<16, 3>),
+         1, 0, kTile, kTile, 0, Layout<16, 3, 0, 0, kWarps>::kBytes};
+  return step_tiles::persistent_grid(S, 0, pl);
+}
+
+bool valid_shape(int S, int H, int D) {
+  return S >= 0 && H >= 1 && H <= kMaxH && D >= 1 && D <= kMaxD;
 }
 
 }  // namespace
@@ -178,21 +211,29 @@ int q15_step_dense_launch(const float* h, const float* x, const uint8_t* mask,
                           const float* u, const float* b_z, const float* b_h,
                           const float* sig_lut, const float* tanh_lut,
                           float zeta, float nu, void* stream) {
-  if (S < 0 || H < 1 || H > kMaxH || D < 1 || D > kMaxD)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_shape(S, H, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return static_cast<int>(cudaSuccess);
-  const DenseParams p{h, x, mask, out, S, H, D, w, u, b_z, b_h, sig_lut,
-                      tanh_lut, zeta, nu};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = fixed_width(H, D, h, out) ? launch<16, 3>(p, s)
-                                                    : launch<0, 0>(p, s);
+  DenseParams p{h, x, mask, out, S, H, D, w, u, b_z, b_h, sig_lut,
+                tanh_lut, zeta, nu};
+  Plan pl;
+  cudaError_t err = make_plan(S, H, D, h, out, false, &pl);
+  if (err == cudaSuccess)
+    err = step_tiles::launch(pl, &p, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 
-// 1 when a launch at this width and these addresses runs the instantiation
-// with fixed sizes, 0 when it runs the one with runtime sizes.
-int q15_step_dense_fixed(int H, int D, const float* h, const float* out) {
-  return fixed_width(H, D, h, out);
+// What a launch of S >= 1 rows at this width and these addresses runs, into
+// plan[0..7]: the fixed-width code (1) or not (0), blocks, threads a block,
+// rows a tile, dynamic shared memory in bytes, resident blocks an SM, and
+// the chosen kernel's local memory (bytes a thread) and registers a thread.
+int q15_step_dense_plan(int S, int H, int D, const float* h,
+                        const float* out, int* plan) {
+  if (S < 1 || !valid_shape(S, H, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  cudaError_t err = make_plan(S, H, D, h, out, true, &pl);
+  if (err == cudaSuccess) err = step_tiles::report(pl, plan);
+  return static_cast<int>(err);
 }
 
 const char* q15_step_dense_error_string(int err) {

@@ -20,7 +20,12 @@
 * :class:`DenseStep` (``csrc/q15_step_dense.cu``) replaces
   ``_q15_step_kernel_mxu`` (``make_fastgrnn_step(mxu=True)``): the same
   step against pre-multiplied effective float32 W and U and without
-  activation storage, bitwise equal to the plain ``qstep.step_dense``.
+  activation storage, bitwise equal to the plain ``qstep.step_dense``.  At
+  the paper's width (H = 16, d = 3, either rank) with h and the output
+  16-byte aligned it runs K1's full-rank cell on K1's tiled persistent
+  pipeline (``csrc/step_tiles.cuh``, shared by both step kernels); every
+  other width or alignment runs its runtime-size kernel.
+  :meth:`DenseStep.plan` reports which, as :meth:`FastGRNNStep.plan` does.
 * :class:`WindowScan` (``csrc/fastgrnn_window.cu``) replaces
   ``_cell_kernel`` (``fastgrnn_window``): the fused FP32 scan over a whole
   (T, B, d) window from h = 0, writing the final h and the (T, B, H)
@@ -78,10 +83,11 @@ _WINDOW_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I,   # x traj h T B H D
                     _P]                           # stream
 
 
-# what q15_step_plan writes, in its order
+# what q15_step_plan and q15_step_dense_plan write, in their order
 PLAN_KEYS = ("fixed", "blocks", "threads", "tile_rows", "smem", "per_sm",
              "local_bytes", "regs")
 _PLAN_ARGTYPES = [_I] * 6 + [_P, _P, ctypes.POINTER(_I)]   # ... h out plan
+_DENSE_PLAN_ARGTYPES = [_I] * 3 + [_P, _P, ctypes.POINTER(_I)]
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -97,8 +103,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bind_dense(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.q15_step_dense_launch.argtypes = _DENSE_ARGTYPES
     lib.q15_step_dense_launch.restype = _I
-    lib.q15_step_dense_fixed.argtypes = [_I, _I, _P, _P]
-    lib.q15_step_dense_fixed.restype = _I
+    lib.q15_step_dense_plan.argtypes = _DENSE_PLAN_ARGTYPES
+    lib.q15_step_dense_plan.restype = _I
     lib.q15_step_dense_error_string.argtypes = [_I]
     lib.q15_step_dense_error_string.restype = ctypes.c_char_p
     return lib
@@ -112,6 +118,22 @@ def _bind_window(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fastgrnn_window_error_string.argtypes = [_I]
     lib.fastgrnn_window_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _plan(step, kernel: str, S: int, *args) -> dict:
+    """The answer of ``<kernel>_plan`` (:data:`PLAN_KEYS`) for S rows and
+    the rest of its arguments; raises on a CPU step (the occupancy and the
+    attributes are the card's answer)."""
+    if step.device.type != "cuda":
+        raise RuntimeError(f"plan: the kernel's plan comes from a CUDA "
+                           f"card; this step is built for {step.device}")
+    vals = (_I * len(PLAN_KEYS))()
+    err = getattr(step._lib, f"{kernel}_plan")(S, *args, vals)
+    if err != 0:
+        msg = getattr(step._lib, f"{kernel}_error_string")(err).decode()
+        raise ValueError(f"plan: the kernel does not take S={S} at this "
+                         f"width ({msg})")
+    return dict(zip(PLAN_KEYS, vals))
 
 
 def _check(step, h, x, mask) -> None:
@@ -173,20 +195,10 @@ class FastGRNNStep:
         blocks an SM, and the chosen kernel's local memory (bytes a thread)
         and registers a thread.  Launches nothing; needs the card (the
         occupancy and the attributes are the card's answer)."""
-        if self.device.type != "cuda":
-            raise RuntimeError(f"plan: the kernel's plan comes from a CUDA "
-                               f"card; this step is built for {self.device}")
         sw = self.sw
         rw, ru = sw.ranks
-        vals = (_I * len(PLAN_KEYS))()
-        err = self._lib.q15_step_plan(S, sw.hidden_dim, sw.input_dim,
-                                      int(sw.low_rank), rw, ru, h.data_ptr(),
-                                      out.data_ptr(), vals)
-        if err != 0:
-            msg = self._lib.q15_step_error_string(err).decode()
-            raise ValueError(f"plan: the kernel does not take S={S} at this "
-                             f"width ({msg})")
-        return dict(zip(PLAN_KEYS, vals))
+        return _plan(self, KERNEL, S, sw.hidden_dim, sw.input_dim,
+                     int(sw.low_rank), rw, ru, h.data_ptr(), out.data_ptr())
 
     def fixed_width(self, h: torch.Tensor, out: torch.Tensor) -> bool:
         """Whether a launch reading ``h`` and writing ``out`` runs the
@@ -242,19 +254,28 @@ class DenseStep:
         """The plain PyTorch version on this step's device (no launch)."""
         return qstep.step_dense(self._arrs, h, x, mask)
 
+    def plan(self, S: int, h: torch.Tensor, out: torch.Tensor) -> dict:
+        """What a launch of S rows reading ``h`` and writing ``out`` runs on
+        the current card, as :meth:`FastGRNNStep.plan` reports it.  Launches
+        nothing; needs the card."""
+        return _plan(self, DENSE_KERNEL, S, self.sw.hidden_dim,
+                     self.sw.input_dim, h.data_ptr(), out.data_ptr())
+
     def fixed_width(self, h: torch.Tensor, out: torch.Tensor) -> bool:
-        """Whether a launch on these tensors runs the kernel's instantiation
-        with the sizes fixed at compile time (the paper's width)."""
-        return bool(self._lib.q15_step_dense_fixed(
-            self.sw.hidden_dim, self.sw.input_dim, h.data_ptr(),
-            out.data_ptr()))
+        """Whether a launch reading ``h`` and writing ``out`` runs the
+        kernel's instantiation with the sizes fixed at compile time (the
+        paper's width, h and out 16-byte aligned)."""
+        return bool(self.plan(h.shape[0], h, out)["fixed"])
 
     def __call__(self, h: torch.Tensor, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
         _check(self, h, x, mask)
         if h.device.type == "cpu":
             return self.plain(h, x, mask)
-        out = torch.empty_like(h)
+        return self._launch(h, x, mask, torch.empty_like(h))
+
+    def _launch(self, h, x, mask, out) -> torch.Tensor:
+        """Launch the kernel into ``out`` (checked inputs on the card)."""
         a = self._arrs
         err = self._lib.q15_step_dense_launch(
             h.data_ptr(), x.data_ptr(), mask.data_ptr(), out.data_ptr(),

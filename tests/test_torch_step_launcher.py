@@ -101,7 +101,8 @@ def test_parent_flag_parses_and_loads_nothing_without_a_tree():
     for old in ("--k5-parent", "--k6-parent"):
         with pytest.raises(SystemExit):
             cs.parse_args([old, "scratch_tree/p"])
-    assert cs.PARENT_KERNELS == ("q15_step", "q15_matmul", "ssd_scan")
+    assert cs.PARENT_KERNELS == ("q15_step", "q15_step_dense", "q15_matmul",
+                                 "ssd_scan")
     assert cs.start_parent_builds(None) == {}
     assert cs.parent_k1(step_weights(), "cpu") is None
     assert cs.parent_k5() is None and cs.parent_k6() is None
