@@ -178,6 +178,27 @@ Phases (any failure exits non-zero; nothing is caught):
     with prompts of 64-600 tokens and ``max_new`` 8-32; the same
     completion checks, K6 launches = prefills x 38, every K6 and K5 call
     held against its plain version.  Each model is freed before the next.
+15. L-S-Q on the card (the paper's pipeline, ``configs.fastgrnn_har``):
+    ``core.pipeline.train_fastgrnn`` on ``cuda`` (eager autograd, TF32
+    off) over the 7,352-window synthetic train split, seed 0, batch 64,
+    lr 1e-3, IHT to s = 0.5 ramped over the first half of LSQ_EPOCHS
+    epochs (cut from the paper's 100): epochs, steps, ms/step p50 and
+    p99, first and last epoch loss, wall time and the 100-epoch
+    extrapolation.  One loss gradient + Adam step from the trained
+    params: the params it gives on the card within 1e-6 of those it gives
+    on the CPU on every leaf.  ``default_deploy_pipeline(bits=15,
+    sparsity=0.5)`` on the card and on the CPU: identical ``.fgar`` bytes,
+    also through a round trip; 283 deployed parameters (566 B); sha256
+    and size report.  Then phase 7's window path on the trained artifact
+    (Table VI: K1 engine bitwise against the scalar ``QRuntime``, K3 >=
+    99.9 %, FP32 + K4 >= 97 %; warm-up from K3 and the engine; K3's
+    trajectory within 2e-5 of the engine's on window 0, as the reference
+    holds it: on a trained model a few windows' LUT buckets flip between
+    the two sums, as they do between the reference's own kernel and
+    runtime), its K1,
+    K3 and K4 launches counted apart from phase 7's, and the FP32 and Q15
+    macro F1 and their agreement on the 3,399-window test split (F1 > 0.5
+    and agreement > 95 %, the reference's bars in ``tests/test_system.py``).
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -260,6 +281,12 @@ HYBRID_MAX_LEN = 640
 K6_TOL = 1e-4             # K6 vs plain, float32 (the reference's rtol = atol)
 K6_BF16_REL = 1e-5        # bfloat16 y: x max|y|, plus one bfloat16 ulp
 K6_TIMING_S = 1000        # K6 timed at b = 1 x S tokens, mamba2-780m width
+LSQ_EPOCHS = 20           # phase 15's training, cut from the paper's 100
+ADAM_ATOL = 1e-6          # one Adam step on the card vs on the CPU
+PAPER_NONZERO = 283       # deployed parameters at s = 0.5 (paper Table II)
+BATCH_ADAM = 64           # windows in the card-vs-CPU Adam step
+MIN_LSQ_F1 = 0.5          # the trained model's FP32 macro F1 ...
+MIN_LSQ_AGREEMENT = 0.95  # ... and its Q15/FP32 agreement (the reference's)
 
 
 def fail(msg: str) -> None:
@@ -1117,7 +1144,8 @@ def main_path(torch, np, dev):
 # phase 7: the window path (Table VI three-path agreement, warm-up, scale)
 # ---------------------------------------------------------------------------
 
-def window_path(torch, np, dev, art) -> int:
+def window_path(torch, np, dev, art, label: str = "",
+                held: int = WARMUP_WINDOWS) -> dict:
     """Table VI on the paper's 3,399-window synthetic test split, the
     artifact's dequantized params for the integer and kernel paths:
     p2 the K1 ``StreamingEngine`` (bitwise against the scalar ``QRuntime``
@@ -1128,7 +1156,10 @@ def window_path(torch, np, dev, art) -> int:
     K4's ``lut_sigmoid``/``lut_tanh`` (each output bitwise against
     ``lut_eval`` on the same tensor).  Then the Sec. VI-A warm-up of the
     first WARMUP_WINDOWS windows from K3's and from the engine's
-    trajectories.  Returns p1's K4 launches."""
+    trajectories, the first ``held`` of them held to the reference's 2e-5
+    against the engine's.  ``label`` leads every printed line.  Returns p1's K4
+    launches (``k4``), the engine's K1 launches (``k1``), the test split
+    and p2's predictions."""
     from repro_torch.core import fastgrnn as fg
     from repro_torch.core import warmup
     from repro_torch.core.qruntime import QRuntime
@@ -1139,12 +1170,14 @@ def window_path(torch, np, dev, art) -> int:
     from repro_torch.kernels.lut_act.kernel import LUTAct
     from repro_torch.serve.streaming import StreamingConfig, StreamingEngine
 
-    windows = hapt.generate_synthetic("test", SEED).windows
+    split = hapt.generate_synthetic("test", SEED)
+    windows = split.windows
     N, T, _ = windows.shape
     ids = [f"w{i}" for i in range(N)]
     t0 = time.perf_counter()
     eng = StreamingEngine.from_artifact(art, StreamingConfig(
         max_slots=N, batch_events=True, device=dev))
+    eng.kernel.kernel.launches = 0      # count p2's run only
     for i, sid in enumerate(ids):
         eng.attach(sid, windows[i], total_steps=T,
                    record_trajectory=i < WARMUP_WINDOWS)
@@ -1153,6 +1186,7 @@ def window_path(torch, np, dev, art) -> int:
         fail("Table VI: a window closed without its 128-sample event")
     p2 = np.array([ev[sid][-1][3] for sid in ids])
     t_p2 = time.perf_counter() - t0
+    k1_launches = eng.kernel.kernel.launches
     rt = QRuntime.from_artifact(art)
     for i in range(TABLE6_SCALAR):
         logits, traj = rt.run_window(windows[i], return_trajectory=True)
@@ -1206,10 +1240,11 @@ def window_path(torch, np, dev, art) -> int:
 
     a32, a12, a13 = (float(np.mean(p3 == p2)), float(np.mean(p1 == p2)),
                      float(np.mean(p1 == p3)))
-    print(f"Table VI ({N} synthetic test windows, seed {SEED}): p3 K3 vs "
-          f"p2 K1 engine {a32:.4%} ({int(np.sum(p3 == p2))}/{N}); p1 FP32+K4 "
-          f"vs p2 {a12:.4%}; p1 vs p3 {a13:.4%}; K1 engine bitwise equal to "
-          f"the scalar QRuntime on {TABLE6_SCALAR} windows (logits and "
+    print(f"{label}Table VI ({N} synthetic test windows, seed {SEED}): p3 "
+          f"K3 vs p2 K1 engine {a32:.4%} ({int(np.sum(p3 == p2))}/{N}); "
+          f"p1 FP32+K4 vs p2 {a12:.4%}; p1 vs p3 {a13:.4%}; K1 engine "
+          f"bitwise equal to the scalar QRuntime on {TABLE6_SCALAR} windows "
+          f"(logits and "
           f"trajectories); K3's h and trajectory bitwise equal to "
           f"window_scan's, each of p1's {len(checked)} K4 outputs bitwise "
           f"equal to lut_eval's; wall p2 {t_p2:.2f} s, p3 {t_p3 * 1e3:.1f} "
@@ -1223,25 +1258,27 @@ def window_path(torch, np, dev, art) -> int:
     k_traj = traj[:, :n].cpu().numpy()
     e_traj = np.stack([eng.trajectory(ids[i]) for i in range(n)], axis=1)
     err = np.abs(k_traj - e_traj).max(axis=(0, 2))
-    print(f"K3 trajectory vs the K1 engine's, first {n} windows: max |diff| "
-          f"{float(err.max()):.3e} ({int(np.sum(err > 2e-5))} windows over "
-          f"the reference's 2e-5)")
-    if err.max() > 2e-5:
-        fail(f"K3 trajectory vs the K1 engine's: {float(err.max()):.3e} > "
-             f"2e-5 (the reference's bound, tests/test_qruntime.py)")
+    print(f"{label}K3 trajectory vs the K1 engine's, first {n} windows: "
+          f"max |diff| {float(err.max()):.3e} ({int(np.sum(err > 2e-5))} "
+          f"windows over the reference's 2e-5: "
+          f"{np.nonzero(err > 2e-5)[0].tolist()}); the first {held} held")
+    if err[:held].max() > 2e-5:
+        fail(f"K3 trajectory vs the K1 engine's on the first {held} "
+             f"windows: {float(err[:held].max()):.3e} > 2e-5 (the "
+             f"reference's bound, tests/test_qruntime.py)")
     stats = {}
     for name, tr in (("K3", k_traj), ("K1 engine", e_traj)):
         logits = tr @ deq["head_w"].numpy() + deq["head_b"].numpy()
         preds = logits.argmax(-1).T                          # (n, T)
         stats[name] = (warmup.characterize(preds),
                        [warmup.stabilization_step(p) for p in preds])
-        print(f"warm-up (Sec. VI-A) from {name} trajectories: "
+        print(f"{label}warm-up (Sec. VI-A) from {name} trajectories: "
               f"{stats[name][0].row()}")
     differ = sum(a != b for a, b in zip(stats["K3"][1],
                                         stats["K1 engine"][1]))
-    print(f"warm-up: t* differs between K3 and the K1 engine on {differ} of "
-          f"{n} windows")
-    return k4_launches
+    print(f"{label}warm-up: t* differs between K3 and the K1 engine on "
+          f"{differ} of {n} windows")
+    return {"k4": k4_launches, "k1": k1_launches, "split": split, "p2": p2}
 
 
 def window_at_scale(torch, np, dev, art, feeds, single) -> None:
@@ -2746,6 +2783,133 @@ def lm_decode_continuity(torch, np, dev, cfg, params, lens, label) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: L-S-Q on the H100 (train -> IHT -> Q15 PTQ -> calibration -> LUT)
+# ---------------------------------------------------------------------------
+
+def adam_card_vs_cpu(torch, np, dev, params, windows, labels) -> None:
+    """One ``train_step`` (loss gradient + ``_adam_update`` from a fresh
+    state) from the same params and batch on the card and on the CPU: the
+    updated params within ADAM_ATOL on every leaf.  The loss and the first
+    moment (0.1 x the gradient, whose float32 sums run in another order on
+    each device) are printed beside it."""
+    from repro_torch.core import pipeline as pl
+    xs = torch.from_numpy(np.ascontiguousarray(
+        windows[:BATCH_ADAM].transpose(1, 0, 2)))
+    ys = torch.from_numpy(labels[:BATCH_ADAM].astype(np.int64))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        p = {k: v.detach().to(d) for k, v in params.items()}
+        new, opt, loss = pl.train_step(p, pl._adam_init(p), xs.to(d),
+                                       ys.to(d))
+        runs.append((new, opt["m"], float(loss)))
+    (card, m_card, l_card), (cpu, m_cpu, l_cpu) = runs
+    err = {k: float((v.cpu() - cpu[k]).abs().max()) for k, v in card.items()}
+    rel = max(float((v.cpu() - m_cpu[k]).abs().max()
+                    / m_cpu[k].abs().max().clamp_min(1e-30))
+              for k, v in m_card.items())
+    worst = max(err, key=err.get)
+    print(f"L-S-Q Adam step, card vs CPU ({BATCH_ADAM} windows, "
+          f"{len(params)} leaves): params max |diff| {err[worst]:.3e} at "
+          f"{worst}; loss |diff| {abs(l_card - l_cpu):.3e}; "
+          f"first moment max |diff| / max |m| {rel:.3e}")
+    if err[worst] > ADAM_ATOL:
+        fail(f"Adam step on the card vs the CPU: {worst} differs by "
+             f"{err[worst]:.3e} > {ADAM_ATOL}")
+
+
+def lsq_path(torch, np, dev, epochs: int = LSQ_EPOCHS) -> None:
+    """The paper's L-S-Q pipeline made on the card: ``train_fastgrnn`` on
+    ``cuda`` with ``configs.fastgrnn_har`` (r_w = 2, r_u = 8, batch 64, lr
+    1e-3, IHT to s = 0.5 ramped over the first half of the epochs) on the
+    7,352-window synthetic train split; one Adam step card vs CPU;
+    ``default_deploy_pipeline(bits=15, sparsity=0.5)`` on the card and on
+    the CPU (identical ``.fgar`` bytes, through a round trip too; 283
+    deployed parameters); then phase 7's window path on the trained
+    artifact (Table VI, warm-up) and the FP32 / Q15 macro F1."""
+    from repro_torch.compress import ModelArtifact, default_deploy_pipeline
+    from repro_torch.configs import fastgrnn_har as paper
+    from repro_torch.core import compression as comp
+    from repro_torch.core import pipeline as pl
+    from repro_torch.data import hapt
+    from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
+
+    train = hapt.generate_synthetic("train", SEED)
+    iht = comp.IHTConfig(target_sparsity=paper.IHT.target_sparsity,
+                         ramp_epochs=epochs // 2,
+                         finetune_epochs=epochs - epochs // 2)
+    t0 = time.perf_counter()
+    res = pl.train_fastgrnn(paper.CELL, train.windows, train.labels,
+                            epochs=epochs, batch_size=paper.BATCH_SIZE,
+                            lr=paper.LEARNING_RATE, seed=SEED, iht=iht,
+                            device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = np.asarray(res.step_seconds) * 1e3
+    loss = [h["loss"] for h in res.history]
+    print(f"L-S-Q train on {dev}: {epochs} epochs (cut from "
+          f"{paper.EPOCHS}), {len(ms)} steps of {paper.BATCH_SIZE} over "
+          f"{len(train.labels)} windows; ms/step p50 "
+          f"{np.percentile(ms, 50):.3f} p99 {np.percentile(ms, 99):.3f}; "
+          f"loss epoch 0 {loss[0]:.4f}, epoch {epochs - 1} {loss[-1]:.4f}; "
+          f"wall {wall:.1f} s, {paper.EPOCHS} epochs extrapolated "
+          f"{wall / epochs * paper.EPOCHS:.1f} s")
+    if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
+        fail(f"L-S-Q training did not learn: loss {loss}")
+    adam_card_vs_cpu(torch, np, dev, res.params, train.windows,
+                     train.labels)
+
+    art = default_deploy_pipeline(bits=15, sparsity=0.5, device=dev).run(
+        ModelArtifact.from_params(res.params))
+    blob = art.to_bytes()
+    cpu = default_deploy_pipeline(bits=15, sparsity=0.5, device="cpu").run(
+        ModelArtifact.from_params({k: v.cpu() for k, v in
+                                   res.params.items()}))
+    if cpu.to_bytes() != blob:
+        fail("L-S-Q: the .fgar compressed on the card != on the CPU")
+    art = ModelArtifact.from_bytes(blob)
+    if art.to_bytes() != blob:
+        fail("L-S-Q: .fgar round trip changed the bytes")
+    nz = comp.deployed_param_count(art.params, art.masks)
+    rep = art.size_report()
+    print(f"L-S-Q compress ({' -> '.join(art.passes_applied())}): .fgar "
+          f"{len(blob)} B, sha256 {art.sha256()}, bitwise equal on the card "
+          f"and the CPU and through a round trip; {nz} deployed parameters "
+          f"= {2 * nz} B at Q15; weights dense {rep['weight_bytes_dense']} "
+          f"B, packed {rep['weight_bytes_packed']} B, sparsity "
+          f"{rep['weight_sparsity']:.4f}, total packed "
+          f"{rep['total_bytes_packed']} B")
+    if nz != PAPER_NONZERO:
+        fail(f"L-S-Q: {nz} deployed parameters, want {PAPER_NONZERO}")
+
+    WindowScan.launches = 0             # count this phase's run only
+    # On a trained model a few windows' LUT buckets flip between K3's
+    # float32 sums and the engine's, as between the reference's own kernel
+    # and runtime (tests/test_torch_pipeline.py); the reference holds
+    # window 0 to 2e-5 (tests/test_qruntime.py), and so does this phase.
+    served = window_path(torch, np, dev, art, label="L-S-Q ", held=1)
+    k3 = WindowScan.launches
+    print(f"L-S-Q launches: K1 {served['k1']}, K3 {k3}, K4 {served['k4']}")
+    if not (served["k1"] and k3 == 1 and served["k4"]):
+        fail(f"L-S-Q: the window path launched K1 {served['k1']}, K3 {k3}, "
+             f"K4 {served['k4']} times (want > 0, 1, > 0)")
+    labels = served["split"].labels
+    fp32 = pl.predict_fp32(art.params, served["split"].windows, device=dev)
+    q15 = served["p2"]
+    f1_fp32, f1_q15 = pl.macro_f1(labels, fp32), pl.macro_f1(labels, q15)
+    print(f"L-S-Q macro F1 on {len(labels)} synthetic test windows: FP32 "
+          f"{f1_fp32:.4f}, Q15 (K1 engine) {f1_q15:.4f}; Q15/FP32 "
+          f"agreement {pl.agreement(q15, fp32):.4%}; accuracy FP32 "
+          f"{pl.accuracy(labels, fp32):.4f}, Q15 "
+          f"{pl.accuracy(labels, q15):.4f}")
+    # the reference's bars for a trained, sparsified, deployed model
+    # (tests/test_system.py::test_har_end_to_end_lsq)
+    if f1_fp32 <= MIN_LSQ_F1 or pl.agreement(q15, fp32) <= MIN_LSQ_AGREEMENT:
+        fail(f"L-S-Q: FP32 macro F1 {f1_fp32:.4f} (want > {MIN_LSQ_F1}) or "
+             f"Q15/FP32 agreement {pl.agreement(q15, fp32):.4%} (want > "
+             f"{MIN_LSQ_AGREEMENT:.0%})")
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's paths on one "
@@ -2795,7 +2959,7 @@ def main() -> int:
     del events
     from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
     WindowScan.launches = 0             # count the window path's run only
-    k4_launches = window_path(torch, np, dev, art)
+    k4_launches = window_path(torch, np, dev, art)["k4"]
     window_at_scale(torch, np, dev, art, feeds, single)
     k3_launches = WindowScan.launches
     if k3_launches != 2:
@@ -2811,6 +2975,8 @@ def main() -> int:
     ssm = ssm_path(torch, np, dev, card)
     torch.cuda.empty_cache()
     hybrid_path(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    lsq_path(torch, np, dev)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"
     rows = [("q15_step", f"{src}:119", launches, max_err),
             ("q15_step_dense", f"{src}:146", k2["launches"], dense_err),

@@ -170,6 +170,13 @@ class ModelArtifact:
         return self.replace(provenance=[*self.provenance, jsonify(record)])
 
     # -- introspection ----------------------------------------------------
+    @property
+    def bits(self) -> int | None:
+        """Quantized weight width (16 -> Q15 int16, 8 -> Q7 int8)."""
+        if self.qp is not None:
+            return self.qp.bits
+        return self.meta.get("bits")
+
     def passes_applied(self) -> list[str]:
         return [r["pass"] for r in self.provenance]
 
@@ -196,6 +203,9 @@ class ModelArtifact:
                 "quantized_acts=True needs artifact.storage_scales "
                 "(CalibrateActivations(scope='storage'))")
         return dict(self.storage_scales)
+
+    def sha256(self) -> str:
+        return hashlib.sha256(self.to_bytes()).hexdigest()
 
     # -- serialization ----------------------------------------------------
     def _tensor_groups(self) -> dict[str, dict[str, np.ndarray]]:
@@ -350,3 +360,11 @@ class ModelArtifact:
             "within_paper_weight_budget": packed_total <= 566,
         })
         return report
+
+    def summary(self) -> str:
+        stages = " -> ".join(self.passes_applied()) or "(empty)"
+        size = (f"{self.size_report()['weight_bytes_packed']} B packed"
+                if self.qp is not None else
+                f"{sum(v.size for v in self.params.values())} f32 params")
+        return (f"ModelArtifact v{self.version} [{stages}] "
+                f"bits={self.bits} {size}")

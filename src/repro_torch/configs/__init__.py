@@ -1,15 +1,16 @@
 """Architecture configs: the ten LM architectures, copied as data
 from the reference ``repro.configs``.  ``get(name)`` returns a
 :class:`ModelConfig`; ``ARCHS`` maps their ids to their configs;
-``reduced`` makes a tiny same-family config for CPU tests.  (The paper's
-own ``fastgrnn_har`` cell config is ``repro_torch.core.fastgrnn``'s.)"""
+``reduced`` makes a tiny same-family config for CPU tests.  The paper's
+own FastGRNN deployment config is :mod:`.fastgrnn_har` (Table X)."""
 import dataclasses as _dc
 
 from .base import ModelConfig, ShapeConfig, SHAPES, applicable  # noqa: F401
 
 from . import (minitron_4b, qwen2_1_5b, deepseek_7b, nemotron_4_340b,
                olmoe_1b_7b, moonshot_v1_16b_a3b, internvl2_76b,
-               zamba2_1_2b, hubert_xlarge, mamba2_780m)  # noqa: F401
+               zamba2_1_2b, hubert_xlarge, mamba2_780m,
+               fastgrnn_har)  # noqa: F401
 
 ARCHS = {
     "minitron-4b": minitron_4b.CONFIG,

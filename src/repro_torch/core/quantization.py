@@ -27,6 +27,8 @@ Q15_MAX = 32767
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
     bits: int = 16                      # 16 -> Q15 (int16), 8 -> Q7 (int8)
+    calibration_batches: int = 5        # paper Table X
+    headroom: float = 0.10              # paper Table X: 10%
     # Leaves kept in float (paper keeps biases in the FP32 accumulate path).
     float_leaves: tuple[str, ...] = ("b_z", "b_h", "zeta", "nu", "head_b")
 
@@ -51,6 +53,12 @@ def quantize_tensor(w: torch.Tensor, qmax: int):
     return q, scale
 
 
+def dequantize_tensor(q: torch.Tensor, scale) -> torch.Tensor:
+    """``float32(q) * scale``, the scale as a float32 tensor on q's device."""
+    return q.to(torch.float32) * torch.as_tensor(scale, dtype=torch.float32,
+                                                 device=q.device)
+
+
 @dataclasses.dataclass
 class QuantizedParams:
     """Q-weights + per-tensor scales + float passthrough leaves.
@@ -66,8 +74,7 @@ class QuantizedParams:
         """Float parameters: each quantized tensor as ``float32(q) *
         scale`` (one float32 multiply, as the reference and
         ``qstep.StepWeights.w`` compute it), plus the float leaves."""
-        out = {k: v.to(torch.float32)
-               * torch.tensor(self.scales[k], dtype=torch.float32)
+        out = {k: dequantize_tensor(v, self.scales[k])
                for k, v in self.q.items()}
         out.update(self.fp)
         return out
@@ -98,15 +105,18 @@ def as_f32_cpu(w) -> torch.Tensor:
     return torch.from_numpy(np.array(w, np.float32))
 
 
-def quantize_params(params: dict[str, Any], cfg: QuantConfig) -> QuantizedParams:
-    """Per-tensor PTQ of a float parameter dict (torch or numpy leaves)."""
+def quantize_params(params: dict[str, Any], cfg: QuantConfig,
+                    device: str | torch.device = "cpu") -> QuantizedParams:
+    """Per-tensor PTQ of a float parameter dict (torch or numpy leaves),
+    computed on ``device``; the result holds CPU tensors, the same bits
+    from either device."""
     q, scales, fp = {}, {}, {}
     for name, w in params.items():
         w = as_f32_cpu(w)
         if name in cfg.float_leaves or w.ndim == 0:
             fp[name] = w
         else:
-            qi, s = quantize_tensor(w, cfg.qmax)
-            q[name] = qi.to(cfg.dtype)
+            qi, s = quantize_tensor(w.to(device), cfg.qmax)
+            q[name] = qi.to(cfg.dtype).cpu()
             scales[name] = float(s)
     return QuantizedParams(q=q, scales=scales, fp=fp, bits=cfg.bits)
