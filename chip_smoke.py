@@ -199,12 +199,32 @@ Phases (any failure exits non-zero; nothing is caught):
     K3 and K4 launches counted apart from phase 7's, and the FP32 and Q15
     macro F1 and their agreement on the 3,399-window test split (F1 > 0.5
     and agreement > 95 %, the reference's bars in ``tests/test_system.py``).
+16. the deploy path on the card (Sec. VI-B): (a) the reference's committed
+    fixture ``tests/goldens/qvm_reference_s0.npz`` (read, never written):
+    its 4,076-byte image round trips through ``DeployImage``, and the
+    port's qvm traces, logits and predictions and the emitted int C
+    (compiled on the host) equal the fixture's; (b)
+    ``deploy.verify.run_parity`` on ``cuda`` over phase 15's trained
+    artifact and the 3,399-window synthetic test split: every ``bitwise``
+    entry true (the K1 engine's logits and per-step trajectories
+    bit-identical to the emitted float C compiled with
+    ``-ffp-contract=off``; the int C to the qvm, counters included; the
+    static crosscheck), the C paths present, the float C and the scalar
+    subset equal to the engine on every window, K1 launches = engine
+    ticks, every one fixed-width; the qvm / int C / FP32 agreements, the
+    image size, the AVR and MSP430 budgets and the section times printed;
+    (c) the same checks on ``build_reference_artifact(seed=0)`` (a CPU
+    ``torch.Generator`` draw) over 256 windows; (d) ``python -m
+    repro_torch.compress --preset q15-deploy --emit-image`` on the card
+    writes the bytes of ``build_image`` of the same artifact made on the
+    CPU.  No C compiler, a failed check or a missing path fails the run.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -287,6 +307,9 @@ PAPER_NONZERO = 283       # deployed parameters at s = 0.5 (paper Table II)
 BATCH_ADAM = 64           # windows in the card-vs-CPU Adam step
 MIN_LSQ_F1 = 0.5          # the trained model's FP32 macro F1 ...
 MIN_LSQ_AGREEMENT = 0.95  # ... and its Q15/FP32 agreement (the reference's)
+GOLDEN = os.path.join(ROOT, "tests", "goldens", "qvm_reference_s0.npz")
+GOLDEN_IMAGE_BYTES = 4_076  # the reference's committed Q15 image
+DEPLOY_INIT_WINDOWS = 256  # phase 16 (c): windows on the seed-0 init artifact
 
 
 def fail(msg: str) -> None:
@@ -2818,7 +2841,7 @@ def adam_card_vs_cpu(torch, np, dev, params, windows, labels) -> None:
              f"{err[worst]:.3e} > {ADAM_ATOL}")
 
 
-def lsq_path(torch, np, dev, epochs: int = LSQ_EPOCHS) -> None:
+def lsq_path(torch, np, dev, epochs: int = LSQ_EPOCHS):
     """The paper's L-S-Q pipeline made on the card: ``train_fastgrnn`` on
     ``cuda`` with ``configs.fastgrnn_har`` (r_w = 2, r_u = 8, batch 64, lr
     1e-3, IHT to s = 0.5 ramped over the first half of the epochs) on the
@@ -2826,7 +2849,8 @@ def lsq_path(torch, np, dev, epochs: int = LSQ_EPOCHS) -> None:
     ``default_deploy_pipeline(bits=15, sparsity=0.5)`` on the card and on
     the CPU (identical ``.fgar`` bytes, through a round trip too; 283
     deployed parameters); then phase 7's window path on the trained
-    artifact (Table VI, warm-up) and the FP32 / Q15 macro F1."""
+    artifact (Table VI, warm-up) and the FP32 / Q15 macro F1.  Returns the
+    trained artifact (phase 16 exports it)."""
     from repro_torch.compress import ModelArtifact, default_deploy_pipeline
     from repro_torch.configs import fastgrnn_har as paper
     from repro_torch.core import compression as comp
@@ -2908,6 +2932,178 @@ def lsq_path(torch, np, dev, epochs: int = LSQ_EPOCHS) -> None:
         fail(f"L-S-Q: FP32 macro F1 {f1_fp32:.4f} (want > {MIN_LSQ_F1}) or "
              f"Q15/FP32 agreement {pl.agreement(q15, fp32):.4%} (want > "
              f"{MIN_LSQ_AGREEMENT:.0%})")
+    return art
+
+
+# ---------------------------------------------------------------------------
+# phase 16: deploy parity on the card (Sec. VI-B)
+# ---------------------------------------------------------------------------
+
+PARITY_BITWISE = ("qruntime_engine_traj", "c_float_engine_logits",
+                  "c_float_engine_traj", "c_int_qvm_traces",
+                  "c_int_qvm_logits", "c_int_qvm_counters",
+                  "numerics_crosscheck")
+
+
+def golden_replay(np) -> None:
+    """The reference's committed fixture, read and never written: its
+    image bytes through ``DeployImage.from_bytes``/``to_bytes``, the port's
+    qvm and the emitted integer C compiled on the host, all bitwise."""
+    import tempfile
+    from repro_torch.deploy import QVM, DeployImage, emit_c
+    from repro_torch.deploy.goldens import load_goldens
+
+    g = load_goldens(GOLDEN)
+    blob = bytes(np.asarray(g["image_bytes"], np.uint8))
+    img = DeployImage.from_bytes(blob)
+    if len(blob) != GOLDEN_IMAGE_BYTES or img.to_bytes() != blob:
+        fail(f"deploy: the fixture's {len(blob)}-byte image does not round "
+             f"trip through DeployImage ({GOLDEN_IMAGE_BYTES} B expected)")
+    vm = QVM(img)
+    n = g["traces"].shape[0]
+    lg, traces = vm.run_windows(g["xq"][:n], return_trajectory=True)
+    all_lg = vm.run_windows(g["xq"])
+    for name, got, want in (("traces", traces, g["traces"]),
+                            ("trace_logits", lg, g["trace_logits"]),
+                            ("logits", all_lg, g["logits"]),
+                            ("preds", np.argmax(all_lg, axis=1), g["preds"])):
+        if not np.array_equal(got, want):
+            fail(f"deploy: the port's qvm {name} != the fixture's")
+    if emit_c.find_cc() is None:
+        fail("deploy: no host C compiler (cc, gcc or clang) on PATH")
+    with tempfile.TemporaryDirectory() as td:
+        cm = emit_c.CHostModel(emit_c.compile_host(img, td, engine="int"),
+                               img.H, img.C, engine="int")
+        ctr, clg, _ = cm.trace(g["xq"])
+    if not (np.array_equal(ctr[:n], g["traces"])
+            and np.array_equal(clg, g["logits"])):
+        fail("deploy: the emitted int C != the fixture's traces or logits")
+    print(f"deploy fixture {os.path.relpath(GOLDEN, ROOT)}: image "
+          f"{len(blob)} B round trips, sha256 {g['image_sha256'][:16]}...; "
+          f"the port's qvm traces ({n} x {traces.shape[1]} steps), logits "
+          f"and preds ({len(g['preds'])} windows) and the emitted int C's "
+          f"traces and logits bitwise the fixture's")
+
+
+@contextlib.contextmanager
+def engine_census():
+    """Every ``StreamingEngine`` made inside the ``with`` block has its K1
+    wrapper's launches zeroed and its library seen through
+    :class:`FixedCount`; yields the list of those engines."""
+    from repro_torch.serve.streaming import StreamingEngine
+
+    engines, init = [], StreamingEngine.__init__
+
+    def counted(self, *args, **kw):
+        init(self, *args, **kw)
+        count_fixed([self.kernel.kernel])
+        engines.append(self)
+
+    StreamingEngine.__init__ = counted
+    try:
+        yield engines
+    finally:
+        StreamingEngine.__init__ = init
+
+
+def parity_on_card(torch, np, dev, art, windows, label: str) -> dict:
+    """``run_parity`` on ``dev``: every ``bitwise`` entry must be true, the
+    C paths present, the float C and the scalar subset equal to the K1
+    engine on every window, and every engine tick one fixed-width K1
+    launch.  Prints the reported (not gated) agreements, sizes, budgets
+    and section times."""
+    from repro_torch.deploy.verify import quantized_paths_agree, run_parity
+
+    with engine_census() as engines:
+        report = run_parity(art, windows=windows, device=dev)
+    ticks = sum(e.stats()["ticks"] for e in engines)
+    launches, fixed = read_fixed([e.kernel.kernel for e in engines])
+    if not engines or launches != ticks or fixed != launches:
+        fail(f"deploy {label}: {len(engines)} engines, K1 launches "
+             f"{launches}, fixed-width {fixed}, advancing ticks {ticks}")
+    missing = {"c_float", "c_int"} - set(report["paths"])
+    if missing:
+        fail(f"deploy {label}: the C paths {sorted(missing)} did not run")
+    bad = [k for k in PARITY_BITWISE if not report["bitwise"].get(k)]
+    if bad or set(report["bitwise"]) != set(PARITY_BITWISE):
+        fail(f"deploy {label}: bitwise entries failed or missing: {bad}; "
+             f"have {report['bitwise']}")
+    ag = report["agreement"]
+    if ag["c_float_vs_engine"] != 1.0 or \
+            ag["qruntime_subset_vs_engine"] != 1.0:
+        fail(f"deploy {label}: c_float {ag['c_float_vs_engine']}, scalar "
+             f"subset {ag['qruntime_subset_vs_engine']} vs the K1 engine")
+    pw = report["pairwise"]
+    n = report["n_windows"]
+    print(f"deploy {label}: run_parity on {dev} over {n} windows: every "
+          f"bitwise entry true ({', '.join(PARITY_BITWISE)}): the K1 "
+          f"engine's logits and {report['n_trace']} per-step trajectories "
+          f"bit-identical to the emitted float C, the int C to the qvm "
+          f"(counters too); c_float_vs_engine 1.0, "
+          f"qruntime_subset_vs_engine 1.0 ({report['n_scalar_subset']} "
+          f"windows); K1 {launches} launches = engine ticks, fixed-width "
+          f"on {fixed}")
+    print(f"deploy {label}: reported, not gated: " + "; ".join(
+        f"{other}_vs_engine {ag[f'{other}_vs_engine']:.4%} "
+        f"({pw[f'engine_vs_{other}']['mismatches']} mismatches)"
+        for other in ("qvm", "c_int", "fp32")) +
+        f"; quantized_paths_agree {quantized_paths_agree(report)}")
+    size = report["size"]
+    print(f"deploy {label}: weights {size['weight_bytes']} B, image "
+          f"{size['total_bytes']} B; budgets " + "; ".join(
+              f"{eng} engine {plat} flash headroom {b['flash_headroom']} B, "
+              f"SRAM headroom {b['sram_headroom']} B"
+              for eng, by in report["budgets"].items()
+              for plat, b in by.items()))
+    print(f"deploy {label}: section seconds {json.dumps(report['timings_s'])}"
+          f", total {report['total_s']}")
+    return report
+
+
+def deploy_path(torch, np, dev, trained) -> None:
+    """Phase 16: the deploy path on the card.  (a) the reference's golden
+    fixture replayed through the port's image, qvm and emitted int C; (b)
+    the Sec. VI-B protocol (``deploy.verify.run_parity``) on phase 15's
+    trained artifact over the 3,399-window synthetic test split, with the
+    K1 engine as the oracle; (c) the same on the seed-0 init artifact of
+    ``build_reference_artifact`` over DEPLOY_INIT_WINDOWS windows; (d) the
+    compress CLI's ``--emit-image`` on the card writes the bytes of
+    ``build_image`` of the same artifact made on the CPU."""
+    import tempfile
+    from repro_torch.compress import ModelArtifact, default_deploy_pipeline
+    from repro_torch.core import fastgrnn as fg
+    from repro_torch.data import hapt
+    from repro_torch.deploy import build_image, build_reference_artifact
+
+    t0 = time.perf_counter()
+    golden_replay(np)
+    test = hapt.generate_synthetic("test", SEED)
+    parity_on_card(torch, np, dev, trained, test.windows, "trained L-S-Q")
+    init = build_reference_artifact(seed=SEED, device=dev)
+    parity_on_card(torch, np, dev, init, test.windows[:DEPLOY_INIT_WINDOWS],
+                   f"seed-{SEED} init")
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "q15.fgrn")
+        env = dict(os.environ, PYTHONPATH=SRC)
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.compress", "--preset",
+             "q15-deploy", "--seed", str(SEED), "--emit-image", path],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            fail(f"compress CLI --emit-image on the card: {res.stderr}")
+        blob = open(path, "rb").read()
+    params = fg.init_params(fg.FastGRNNConfig(rank_w=2, rank_u=8),
+                            torch.Generator().manual_seed(SEED))
+    want = build_image(default_deploy_pipeline(bits=15, device="cpu").run(
+        ModelArtifact.from_params(params))).to_bytes()
+    if blob != want:
+        fail("compress CLI --emit-image on the card != build_image of the "
+             "same artifact made on the CPU")
+    print(f"deploy: python -m repro_torch.compress --preset q15-deploy "
+          f"--emit-image on {dev.type}: {len(blob)} B, equal to build_image "
+          f"of the artifact made on the CPU")
+    print(f"deploy path (phase 16) wall {time.perf_counter() - t0:.1f} s")
 
 
 def parse_args(argv=None):
@@ -2976,7 +3172,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_path(torch, np, dev, card)
     torch.cuda.empty_cache()
-    lsq_path(torch, np, dev)
+    trained = lsq_path(torch, np, dev)
+    deploy_path(torch, np, dev, trained)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"
     rows = [("q15_step", f"{src}:119", launches, max_err),
             ("q15_step_dense", f"{src}:146", k2["launches"], dense_err),

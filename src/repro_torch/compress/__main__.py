@@ -25,7 +25,9 @@ float checkpoint is ``core.fastgrnn.init_params`` drawn from a CPU
 threefry draw, so those bytes differ from the reference CLI's.  The
 emitted ``--report`` JSON carries ``"benchmark": "compress_artifact"``
 and validates under ``benchmarks/validate_bench.py``.  ``--emit-image``
-needs ``deploy/`` (ROADMAP A7), which is not ported yet.
+also lowers the artifact to a packed deploy image (``.fgrn``) through
+``repro_torch.deploy.image.build_image``: the reference CLI's bytes for
+the same ``--params``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ import sys
 
 import numpy as np
 import torch
+
+from repro_torch.deploy.image import build_image
 
 from .artifact import ModelArtifact
 from .pipeline import default_deploy_pipeline, pipeline_from_config
@@ -86,16 +90,11 @@ def main(argv: list[str] | None = None) -> int:
     out.add_argument("--report", default=None,
                      help="size-report JSON path, or - for stdout")
     out.add_argument("--emit-image", default=None,
-                     help="also lower to a packed deploy image (.fgrn); "
-                          "not ported yet (ROADMAP A7)")
+                     help="also lower to a packed deploy image (.fgrn)")
     args = ap.parse_args(argv)
 
     if args.config and args.preset:
         ap.error("--config and --preset are mutually exclusive")
-    if args.emit_image:
-        raise NotImplementedError(
-            "--emit-image needs deploy/image.build_image, which is not "
-            "ported yet: ROADMAP A7")
     if args.config:
         with open(args.config) as f:
             pipe = pipeline_from_config(json.load(f), device=args.device)
@@ -113,6 +112,11 @@ def main(argv: list[str] | None = None) -> int:
         with open(args.out, "wb") as f:
             f.write(blob)
         print(f"wrote {args.out} ({len(blob)} bytes, sha256 {sha[:16]}...)")
+    if args.emit_image:
+        img = build_image(art)
+        with open(args.emit_image, "wb") as f:
+            f.write(img.to_bytes())
+        print(f"wrote {args.emit_image} ({img.nbytes()} bytes)")
     if args.report:
         report = {"benchmark": "compress_artifact",
                   "pipeline": pipe.name,

@@ -1,6 +1,6 @@
 """Numeric-health telemetry: runtime saturation counters + calibration drift.
 
-The Q15 integer contracts are *statically* provable: the reference package's ``repro.analysis``
+The Q15 integer contracts are *statically* provable: ``repro_torch.analysis``
 re-executes the deployed step/head program over exact integer intervals and
 classifies every saturation site reachable or dead (``ANALYSIS_report.json``).
 This module is the dynamic half of that loop — at serving time it counts how
@@ -20,7 +20,7 @@ the ranges the artifact was calibrated on:
   deterministic ``calibration_drift`` score (range-overflow fraction plus
   p99 quantile shift) — the early-warning signal that a tenant's sensor
   left the calibrated envelope *before* argmax agreement degrades.
-* **Static cross-check.**  The reference package's ``repro.analysis.crosscheck`` asserts every
+* **Static cross-check.**  :func:`repro_torch.analysis.crosscheck` asserts every
   runtime witness is a statically-reachable site (a dead site firing is a
   hard invariant violation); ``deploy/verify.py`` runs it as part of the
   parity protocol.

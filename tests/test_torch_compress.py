@@ -2,8 +2,9 @@
 reference ``repro.compress`` on the same numpy params.  Mirrors the
 ``deploy/``-free half of ``tests/test_compress.py`` (round trip, double
 run, provenance, sparsify, low rank, loud ordering errors, the legacy
-handoff, runtimes from the artifact, config loader, the CLI) and holds the
-``.fgar`` bytes to the reference's after every pass and every preset."""
+handoff, runtimes from the artifact, config loader, the CLI), holds the
+``.fgar`` bytes to the reference's after every pass and every preset, and
+the CLI's ``--emit-image`` ``.fgrn`` bytes to the reference CLI's."""
 import json
 import os
 import subprocess
@@ -431,11 +432,19 @@ def test_cli_default_init_is_a_torch_generator_draw(tmp_path):
     assert "W" in _load_params(args) and "U" in _load_params(args)
 
 
-def test_cli_emit_image_waits_for_deploy(tmp_path):
-    """Deliberate divergence (ROADMAP Queue C): ``--emit-image`` needs
-    ``deploy/image.build_image`` (ROADMAP A7) and raises until then."""
-    from repro_torch.compress.__main__ import main
-    with pytest.raises(NotImplementedError, match="A7"):
-        main(["--preset", "q7-deploy", "--device", "cpu",
-              "--emit-image", str(tmp_path / "q7.fgrn")])
-    assert not os.path.exists(tmp_path / "q7.fgrn")
+@pytest.mark.parametrize("preset", ["q15-deploy", "q7-deploy"])
+def test_cli_emit_image_matches_reference_cli(tmp_path, preset):
+    """From the same ``--params`` checkpoint the port CLI's
+    ``--emit-image`` writes the reference CLI's ``.fgrn`` bytes."""
+    ckpt = str(tmp_path / "ckpt.npz")
+    np.savez(ckpt, **_params(5))
+    blobs = []
+    for module, extra in (("repro_torch.compress", ["--device", "cpu"]),
+                          ("repro.compress", [])):
+        out = str(tmp_path / f"{module}.fgrn")
+        res = _cli(["--preset", preset, "--params", ckpt,
+                    "--emit-image", out, *extra], tmp_path, module)
+        assert res.returncode == 0, res.stderr
+        blobs.append(open(out, "rb").read())
+    assert blobs[0] == blobs[1]
+    assert len(blobs[0]) == 4076

@@ -91,3 +91,17 @@ def assert_counters_conserved(stats: dict) -> None:
     """The fleet counter-conservation invariant, through the port's own
     implementation."""
     assert_conservation(stats)
+
+
+def reference_init(low_rank=True, seed=0) -> dict:
+    """The reference's seed init, ``repro.core.fastgrnn.init_params`` on a
+    threefry key, as NumPy.  Built under ``threefry_partitionable(False)``
+    (ROADMAP C0): that is the init of the reference's committed fixtures
+    (``tests/goldens/``, ``ANALYSIS_report.json``)."""
+    import jax
+    from repro.core import fastgrnn as jfg
+    cfg = jfg.FastGRNNConfig(rank_w=2 if low_rank else None,
+                             rank_u=8 if low_rank else None)
+    with jax.threefry_partitionable(False):
+        p = jfg.init_params(cfg, jax.random.PRNGKey(seed))
+    return {k: np.asarray(v) for k, v in p.items()}
