@@ -218,6 +218,25 @@ Phases (any failure exits non-zero; nothing is caught):
     repro_torch.compress --preset q15-deploy --emit-image`` on the card
     writes the bytes of ``build_image`` of the same artifact made on the
     CPU.  No C compiler, a failed check or a missing path fails the run.
+17. OLMoE-1B-7B (``moe``: 16 layers, d_model 2048, 64 experts top-8,
+    expert d_ff 1024, vocab 50,304) at full width, bfloat16 experts from
+    a CUDA generator seeded 0: ``Engine(quant_bits=16)`` over 8 slots,
+    ``max_len`` 512, 16 requests with prompts of 16-256 tokens (a prefill
+    routes at capacity factor 1.25 and may drop tokens) and ``max_new``
+    8-32; the same completion checks as phase 12, K5 launches = prefills
+    + decode ticks, every head output within 1e-5 x max|plain| of the
+    plain version; tokens/s, the engine's spans, peak memory and a
+    profiled window of 10 decode ticks (as in phase 12).  Then the
+    longest prompt prefilled twice through ``forward`` on the
+    engine's weights: the logits bitwise equal (the MoE combine has no
+    float atomic) and the dropped (token, expert) assignments counted
+    (fails if none); one full-width layer's routing of 256 float32 tokens
+    (``models.moe.route``: top-k experts and weights, slot table, kept
+    assignments, inverse map) on the card bitwise the CPU's; and, the
+    engine freed, the float32 slotted decode as in phase 12 within 1e-3
+    of ``forward`` at the no-drop capacity factor, on the first
+    MOE_DECODE_LAYERS of the 16 layers (float32 experts at 16 layers
+    would take 25.8 GB).
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -310,6 +329,12 @@ MIN_LSQ_AGREEMENT = 0.95  # ... and its Q15/FP32 agreement (the reference's)
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "qvm_reference_s0.npz")
 GOLDEN_IMAGE_BYTES = 4_076  # the reference's committed Q15 image
 DEPLOY_INIT_WINDOWS = 256  # phase 16 (c): windows on the seed-0 init artifact
+MOE_ARCH = "olmoe-1b-7b"  # phase 17's model, at full width
+MOE_REQUESTS = 16
+MOE_PROMPT = (16, 256)    # prompt tokens: prefills that drop at cf 1.25
+MOE_NEW = (8, 32)
+MOE_ROUTING_TOKENS = 256  # tokens of the card-vs-CPU routing check
+MOE_DECODE_LAYERS = 4     # the f32 decode-vs-forward check, cut from 16
 
 
 def fail(msg: str) -> None:
@@ -2259,6 +2284,11 @@ def init_lm(torch, dev, cfg):
     if cfg.family == "dense":
         shape.append(f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads "
                      f"of {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_kind}")
+    if cfg.family == "moe":
+        shape.append(f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads "
+                     f"of {cfg.head_dim}, {cfg.num_experts} experts top-"
+                     f"{cfg.top_k} of d_ff {cfg.d_ff} {cfg.mlp_kind}, "
+                     f"capacity factor {cfg.capacity_factor}")
     if cfg.uses_mamba:
         shape.append(f"mamba d_inner {2 * cfg.d_model}, "
                      f"{2 * cfg.d_model // cfg.mamba_headdim} SSM heads of "
@@ -3106,6 +3136,105 @@ def deploy_path(torch, np, dev, trained) -> None:
     print(f"deploy path (phase 16) wall {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the MoE family at full width (OLMoE-1B-7B)
+# ---------------------------------------------------------------------------
+
+def moe_routing(torch, np, dev, router) -> None:
+    """One full-width layer's routing (``models.moe.route`` at capacity
+    factor 1.25) of MOE_ROUTING_TOKENS float32 tokens from seed SEED, on
+    the card and on the CPU: every field bitwise equal."""
+    from repro_torch import configs
+    from repro_torch.models import moe as M
+    cfg = configs.get(MOE_ARCH)
+    x = np.random.default_rng(SEED + 2).standard_normal(
+        (MOE_ROUTING_TOKENS, cfg.d_model)).astype(np.float32)
+    kw = dict(num_experts_global=cfg.num_experts, expert_offset=0,
+              e_loc=cfg.num_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    card = M.route({"w": router.float()}, torch.as_tensor(x, device=dev),
+                   **kw)
+    host = M.route({"w": router.float().cpu()}, torch.as_tensor(x), **kw)
+    for name in ("gate_idx", "gate_vals", "idx", "wgt", "filled", "keep",
+                 "inverse"):
+        got, want = getattr(card, name).cpu(), getattr(host, name)
+        if got.is_floating_point():
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"MoE routing {name}: the card's differs from the CPU's "
+                 f"in {int((got != want).sum())} places")
+    if card.cap != host.cap:
+        fail(f"MoE routing capacity {card.cap} on the card, {host.cap} on "
+             "the CPU")
+    print(f"MoE routing of {MOE_ROUTING_TOKENS} float32 tokens through layer "
+          f"0's router ({cfg.num_experts} experts, top {cfg.top_k}, capacity "
+          f"{card.cap} at factor {cfg.capacity_factor}): top-k experts and "
+          f"weights, slot table (idx, wgt, filled), kept assignments and "
+          f"inverse map bitwise equal on the card and the CPU; "
+          f"{int(card.aux['dropped'])} of {MOE_ROUTING_TOKENS * cfg.top_k} "
+          f"assignments dropped")
+
+
+def moe_path(torch, np, dev, card) -> dict:
+    """Phase 17: OLMoE-1B-7B at full width through the engine (K5 at its
+    head) and a profiled window of its decode ticks, a prefill run twice
+    bitwise with its drops counted, the
+    routing on the card against the CPU, then the float32 slotted decode
+    against ``forward`` on the first MOE_DECODE_LAYERS layers."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = configs.get(MOE_ARCH)
+    params = init_lm(torch, dev, cfg)
+    reqs = lm_requests(np, cfg.vocab_size, MOE_REQUESTS, MOE_PROMPT, MOE_NEW)
+    out = serve_lm(torch, np, dev, card, cfg, params, slots=LM_SLOTS,
+                   max_len=LM_MAX_LEN, reqs=reqs, label="MoE path")
+    eng = out.pop("eng")
+    lm_profiled_ticks(torch, np, eng, cfg.vocab_size, MOE_PROMPT[1],
+                      MOE_NEW[1], "MoE profiled window")
+
+    toks = max((t for t, _ in reqs), key=len)
+    batch = {"tokens": torch.as_tensor(toks[None].astype(np.int64),
+                                       device=dev)}
+    runs = [T.forward(cfg, eng.params, batch)[:2] for _ in range(2)]
+    torch.cuda.synchronize()
+    (a, aux), (b, _) = runs
+    if not bits_equal(a, b):
+        fail("MoE prefill run twice: logits differ "
+             f"({first_diff(a[0], b[0])})")
+    dropped = int(aux["dropped"])
+    total = len(toks) * cfg.top_k * cfg.num_layers
+    cap = M.capacity(len(toks), cfg.top_k, cfg.num_experts,
+                     cfg.capacity_factor)
+    if dropped == 0:
+        fail(f"MoE prefill of {len(toks)} tokens dropped no assignment at "
+             f"capacity factor {cfg.capacity_factor}")
+    print(f"MoE prefill of {len(toks)} tokens through forward on the "
+          f"engine's weights, run twice on the card: logits "
+          f"{tuple(a.shape)} bitwise equal; {dropped} of {total} (token, "
+          f"expert) assignments dropped over {cfg.num_layers} layers at "
+          f"capacity factor {cfg.capacity_factor} (capacity {cap} a layer)")
+    del eng, runs, a, b
+    moe_routing(torch, np, dev, params["blocks"]["moe"]["router"]["w"][0])
+    torch.cuda.empty_cache()
+
+    n = MOE_DECODE_LAYERS
+    cut = dataclasses.replace(cfg, num_layers=n,
+                              capacity_factor=cfg.num_experts / cfg.top_k)
+    shallow = dict(params, blocks=tree_map(lambda t: t[:n], params["blocks"]))
+    lm_decode_continuity(torch, np, dev, cut, shallow, (32, 57),
+                         f"MoE ({n} of {cfg.num_layers} layers, no-drop "
+                         f"capacity factor {cut.capacity_factor})")
+    del params, shallow
+    torch.cuda.empty_cache()
+    print(f"MoE path (phase 17) wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's paths on one "
@@ -3174,6 +3303,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = lsq_path(torch, np, dev)
     deploy_path(torch, np, dev, trained)
+    del trained
+    torch.cuda.empty_cache()
+    moe_path(torch, np, dev, card)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"
     rows = [("q15_step", f"{src}:119", launches, max_err),
             ("q15_step_dense", f"{src}:146", k2["launches"], dense_err),

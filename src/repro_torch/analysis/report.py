@@ -7,9 +7,10 @@ One ``analysis_report`` JSON artifact (the schema of the committed
 * ``qlint``  — per-target instruction table with the *proven* interval
   bound, minimum signed width, declared width, and saturation
   classification per site, plus any findings;
-* ``detlint`` — the determinism linter's findings and suppressions.  The
-  port has no linter yet (ROADMAP A8): pass ``None`` and the block reads
-  ``{"skipped": true}``.
+* ``detlint`` — per-file findings of the determinism linter
+  (:mod:`.detlint`) and the suppressions that were honored (an
+  intentional exception is part of the record, not silence); pass
+  ``None`` to skip it and the block reads ``{"skipped": true}``.
 
 Determinism contract: the report contains no wall-clock, no host info,
 and no floats — ints, strings and bools only, serialized as canonical
@@ -36,6 +37,18 @@ class Finding:
     def to_dict(self) -> dict[str, str]:
         return {"check": self.check, "where": self.where,
                 "message": self.message}
+
+
+@dataclasses.dataclass(frozen=True)
+class Suppression:
+    """One honored inline suppression (``# detlint: ignore[check] reason``)."""
+    check: str
+    where: str
+    reason: str
+
+    def to_dict(self) -> dict[str, str]:
+        return {"check": self.check, "where": self.where,
+                "reason": self.reason}
 
 
 def build_report(qlint_targets: list[dict[str, Any]],
@@ -67,3 +80,8 @@ def dumps(report: dict[str, Any]) -> str:
     return json.dumps(report, sort_keys=True, indent=1,
                       separators=(",", ": ")) + "\n"
 
+
+def write(report: dict[str, Any], path: str) -> None:
+    """The report's canonical JSON (:func:`dumps`) into ``path``."""
+    with open(path, "w") as f:
+        f.write(dumps(report))

@@ -1,3 +1,3 @@
 """The LM zoo (reference ``repro.models``): ``layers``, ``attention``,
-``mamba2`` and ``transformer`` for the ``dense``, ``ssm`` and ``hybrid``
-families."""
+``moe``, ``mamba2`` and ``transformer`` for the ``dense``, ``moe``,
+``ssm`` and ``hybrid`` families."""

@@ -2,6 +2,7 @@
 ported so far:
 
   dense : [rmsnorm -> GQA attention -> rmsnorm -> MLP] x L
+  moe   : [rmsnorm -> GQA attention -> rmsnorm -> MoE] x L
   ssm   : [rmsnorm -> Mamba-2] x L
   hybrid: the Mamba-2 backbone with ONE shared attention + MLP block
           applied after every ``attn_every`` mamba layers (zamba2)
@@ -11,18 +12,22 @@ stacked with a leading L axis (``params["blocks"]``), as the reference
 stacks them, and a Python loop over the layers takes the place of
 ``lax.scan``.  Every mamba block's full-sequence scan goes through the SSD
 scan kernel's entry point (``kernels.ssd_scan.ops.ssd_scan``, the
-reference's ``ssm_impl`` seam).  Serving keeps the reference's cache
-layouts: ``(L, B, S_max, KV, hd)`` K/V (``(n_groups, ...)`` for the hybrid
-shared block), ``(L, B, H, N, P)`` float32 SSM states and ``(L, B, 3,
-width)`` conv tails, with one shared fill level ``len`` (a Python int here)
-or, for continuous batching, a per-slot fill level ``pos`` ((S,) int32
-tensor).  Decode writes the cache tensors in place and returns the cache
-dict; an inactive slot keeps its cache rows and ``pos`` bit for bit.
+reference's ``ssm_impl`` seam).  A ``moe`` block's FFN is
+``models.moe.moe_apply``: at ``cfg.capacity_factor`` over a full
+sequence (a prefill may drop tokens, as the reference's does) and at
+``num_experts / top_k`` in both decode paths, which never drops.  Serving
+keeps the reference's cache layouts: ``(L, B, S_max, KV, hd)`` K/V
+(``(n_groups, ...)`` for the hybrid shared block), ``(L, B, H, N, P)``
+float32 SSM states and ``(L, B, 3, width)`` conv tails, with one shared
+fill level ``len`` (a Python int here) or, for continuous batching, a
+per-slot fill level ``pos`` ((S,) int32 tensor).  Decode writes the cache
+tensors in place and returns the cache dict; an inactive slot keeps its
+cache rows and ``pos`` bit for bit.
 
 The other families are not ported yet and raise ``NotImplementedError``:
-``moe`` (ROADMAP A9, ``models/moe.py``), ``vlm`` and ``audio`` (A9, their
-frontends and heads).  Sequence parallelism, meshes and remat belong with
-training and ``launch/`` (A10).
+``vlm`` and ``audio`` (ROADMAP A9.2, their frontends and heads).
+Sequence parallelism, meshes and remat belong with training and
+``launch/`` (A10).
 """
 from __future__ import annotations
 
@@ -36,18 +41,18 @@ from repro_torch.pytree import tree_map
 from . import attention as A
 from . import layers as L
 from . import mamba2 as S
+from . import moe as M
 
-_PORTED = ("dense", "ssm", "hybrid")
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 _NOT_PORTED = {
-    "moe": "ROADMAP A9: models/moe.py",
-    "vlm": "ROADMAP A9: the vlm patch-embedding frontend",
-    "audio": "ROADMAP A9: the audio encoder and its frame head",
+    "vlm": "ROADMAP A9.2: the vlm patch-embedding frontend",
+    "audio": "ROADMAP A9.2: the audio encoder and its frame head",
 }
 
 
 def require_ported(cfg) -> None:
-    """Raise for every family but ``dense``, ``ssm`` and ``hybrid``,
-    naming its ROADMAP item."""
+    """Raise for every family but ``dense``, ``moe``, ``ssm`` and
+    ``hybrid``, naming its ROADMAP item."""
     if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
@@ -79,13 +84,18 @@ def _block_init(cfg, generator):
     if cfg.uses_mamba:
         return {"ln": L.rmsnorm_init(cfg.d_model, dt, dev),
                 "mamba": S.mamba_init(generator, cfg, dt)}
-    return {"ln1": L.rmsnorm_init(cfg.d_model, dt, dev),
-            "attn": A.attn_init(generator, cfg.d_model, cfg.num_heads,
-                                cfg.num_kv_heads, cfg.head_dim,
-                                qkv_bias=cfg.qkv_bias, dtype=dt),
-            "ln2": L.rmsnorm_init(cfg.d_model, dt, dev),
-            "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                              rank=cfg.lsq_rank, dtype=dt)}
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, dt, dev),
+         "attn": A.attn_init(generator, cfg.d_model, cfg.num_heads,
+                             cfg.num_kv_heads, cfg.head_dim,
+                             qkv_bias=cfg.qkv_bias, dtype=dt),
+         "ln2": L.rmsnorm_init(cfg.d_model, dt, dev)}
+    if cfg.family == "moe":
+        p["moe"] = M.moe_init(generator, cfg.d_model, cfg.d_ff,
+                              cfg.num_experts, cfg.mlp_kind, dt)
+    else:
+        p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                              cfg.mlp_kind, rank=cfg.lsq_rank, dtype=dt)
+    return p
 
 
 def init(cfg, generator: torch.Generator) -> dict[str, Any]:
@@ -117,6 +127,19 @@ def init(cfg, generator: torch.Generator) -> dict[str, Any]:
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn(cfg, bp, y, *, decode: bool = False):
+    """The block's MLP, or its MoE: -> (out, aux).  A full sequence routes
+    at ``cfg.capacity_factor``; the decode paths at ``num_experts /
+    top_k``, which gives every expert room for every token, so serving
+    never drops one."""
+    if cfg.family == "moe":
+        cf = cfg.num_experts / cfg.top_k if decode else cfg.capacity_factor
+        return M.moe_apply(bp["moe"], y, top_k=cfg.top_k, capacity_factor=cf,
+                           kind=cfg.mlp_kind, compute_dtype=cfg.cdtype)
+    return (L.mlp_apply(bp["mlp"], y, cfg.mlp_kind, compute_dtype=cfg.cdtype),
+            _zero_aux(y.device))
+
+
 def _attn_block(cfg, bp, x, positions, *, window=None, emit_cache=False):
     h, kv = A.attn_apply(bp["attn"], L.rmsnorm_apply(bp["ln1"], x,
                                                      cfg.norm_eps),
@@ -124,8 +147,8 @@ def _attn_block(cfg, bp, x, positions, *, window=None, emit_cache=False):
                          compute_dtype=cfg.cdtype)
     x = x + h
     y = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
-    m = L.mlp_apply(bp["mlp"], y, cfg.mlp_kind, compute_dtype=cfg.cdtype)
-    return x + m, _zero_aux(x.device), (kv if emit_cache else None)
+    m, aux = _ffn(cfg, bp, y)
+    return x + m, aux, (kv if emit_cache else None)
 
 
 def _mamba_block(cfg, bp, x):
@@ -149,8 +172,11 @@ def _shared_block(cfg, sp, x, positions, *, window=None):
 
 
 def _zero_aux(device):
+    """The reference's two router losses, and the count of (token, expert)
+    assignments dropped past capacity (``models.moe``)."""
     return {"aux_loss": torch.zeros((), device=device),
-            "router_z_loss": torch.zeros((), device=device)}
+            "router_z_loss": torch.zeros((), device=device),
+            "dropped": torch.zeros((), dtype=torch.int64, device=device)}
 
 
 def _embed_inputs(cfg, params, batch):
@@ -233,7 +259,7 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
 
     c: dict[str, Any] = {"len": 0}
     # the hybrid's shared block caches K/V once per application
-    n_attn = (cfg.num_layers if cfg.family == "dense" else
+    n_attn = (cfg.num_layers if cfg.family in ("dense", "moe") else
               cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
               else 0)
     if n_attn:
@@ -311,8 +337,7 @@ def _decode_blocks(cfg, params, cache, x, attend, active=None):
         h, _, _ = attend(bp["attn"], h, cache["k"][gi], cache["v"][gi])
         x = x + h
         y = L.rmsnorm_apply(bp["ln2"], x, eps)
-        x = x + L.mlp_apply(bp["mlp"], y, cfg.mlp_kind,
-                            compute_dtype=cfg.cdtype)
+        x = x + _ffn(cfg, bp, y, decode=True)[0]
     return L.rmsnorm_apply(params["final_norm"], x, eps)
 
 

@@ -6,8 +6,10 @@ The :class:`~repro_torch.serve.scheduler.SlotScheduler` owns placement
 module implements its program: per-slot cache rows (K/V for attention
 layers, SSM state and conv tail for mamba layers), preallocated output
 buffers and batched sampling.  It serves the families the LM assembly
-ports (``dense``, ``ssm``, ``hybrid``); every prefill of a mamba layer
-runs the SSD scan kernel.
+ports (``dense``, ``moe``, ``ssm``, ``hybrid``); every prefill of a mamba
+layer runs the SSD scan kernel, and a ``moe`` prefill routes at the
+config's capacity factor (it may drop tokens, as the reference's does)
+while a decode tick never drops.
 
 * **Continuous batching**: a finished sequence's slot is re-prefilled from
   the pending queue on the next tick.  The cache is a slot table
@@ -26,6 +28,8 @@ runs the SSD scan kernel.
   ``kernels.q15_matmul`` (the hand-written kernel on the card, its plain
   version on the CPU).  The (K, V) integer head is laid out once: the
   transposed embedding table for tied configs, ``lm_head.w`` otherwise.
+  A stacked leaf is one tensor with one scale, a ``moe`` block's
+  ``(L, E, d_in, d_out)`` expert weights included, as in the reference.
 
 The engine runs on ``device`` (default ``"cuda"``; asking for the card
 without one raises).  Per-slot host state stays numpy, as in the

@@ -36,7 +36,8 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
     """The reference's LM parameter pytree, with ``np.asarray`` applied to
     each leaf, as the port's nested dict of tensors on ``device`` (the
     card unless the caller asks for the CPU), bit for bit: stacked
-    ``blocks`` keep their leading L axis, float32 leaves carry across as
+    ``blocks`` keep their leading L axis (a ``moe`` block's router and its
+    ``(L, E, d_in, d_out)`` expert weights too), float32 leaves carry across as
     they are, and bfloat16 leaves (``ml_dtypes`` arrays, told by their
     dtype's name) through their 16-bit patterns."""
     device = resolve_device(device)

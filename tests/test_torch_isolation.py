@@ -89,6 +89,14 @@ for arch in ("mamba2-780m", "zamba2-1.2b"):
                  ServeConfig(max_len=16, max_slots=2), device="cpu")
     out = eng.generate(np.ones((3, 5), np.int32), max_new=3)
     assert out.shape == (3, 3) and eng.stats()["prefills"] == 3
+cfg = configs.reduced(configs.get("olmoe-1b-7b"), compute_dtype="float32")
+eng = Engine(cfg, T.init(cfg, torch.Generator().manual_seed(0)),
+             ServeConfig(max_len=16, max_slots=2, quant_bits=16),
+             device="cpu")
+out = eng.generate(np.ones((3, 6), np.int32), max_new=3)
+assert out.shape == (3, 3) and eng.stats()["prefills"] == 3
+from repro_torch.analysis import lint_tree, run_selftest
+assert lint_tree()["findings"] == [] and run_selftest()["ok"]
 y, st = ssd_scan(torch.ones(1, 5, 2, 4), torch.ones(1, 5, 2), -torch.ones(2),
                  torch.ones(1, 5, 1, 3), torch.ones(1, 5, 1, 3), chunk=2)
 assert y.shape == (1, 5, 2, 4) and st.shape == (1, 2, 3, 4)

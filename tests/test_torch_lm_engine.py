@@ -5,9 +5,13 @@ in float32 at reduced width.  Greedy generations identical for
 ``quant_bits`` 0, 8 and 16 through 4 and through 2 slots (mirror of
 ``tests/test_serve_engine.py``'s greedy and continuous-batching tests),
 with equal ``stats()``, for the ``dense`` family, and for 0 and 16 for
-mamba2-780m (``ssm``) and zamba2-1.2b (``hybrid``); mixed budgets, cancels, the ``eos_id`` stop, the
+mamba2-780m (``ssm``), zamba2-1.2b (``hybrid``) and olmoe-1b-7b and
+moonshot-v1-16b-a3b (``moe``: at the no-drop capacity factor of the
+reference's ``tests/test_serve_engine.py``, and once at the default 1.25,
+where prefills drop tokens in both packages); mixed budgets, cancels, the ``eos_id`` stop, the
 ``obs=`` spans and counter; ``quantize_tree`` / ``dequantize_tree``
 bitwise the reference's; temperature sampling valid and seeded."""
+import dataclasses
 import functools
 
 import jax
@@ -27,19 +31,27 @@ from repro_torch import configs as C
 from repro_torch import weights
 from repro_torch.compress.tree import (dequantize_tree, quantize_tree,
                                        tree_size_report)
+from repro_torch.models import transformer as T
 from repro_torch.obs import Observability
 from repro_torch.pytree import tree_leaves
 from repro_torch.serve.engine import Engine, ServeConfig
 
 ARCHS = ["qwen2-1.5b", "deepseek-7b"]     # tied head + QKV bias; untied
+MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
 
 
 @functools.lru_cache(maxsize=None)
-def setup(arch, batch=4, prompt=8):
+def setup(arch, batch=4, prompt=8, drop=False):
+    """A ``moe`` config gets the no-drop capacity factor, as the
+    reference's engine tests give it, unless ``drop``."""
     jcfg = JC.reduced(JC.get(arch), compute_dtype="float32",
                       param_dtype="float32")
     cfg = C.reduced(C.get(arch), compute_dtype="float32",
                     param_dtype="float32")
+    if cfg.family == "moe" and not drop:
+        cf = cfg.num_experts / cfg.top_k
+        jcfg = dataclasses.replace(jcfg, capacity_factor=cf)
+        cfg = dataclasses.replace(cfg, capacity_factor=cf)
     with jax.threefry_partitionable(False):
         jp = JT.init(jcfg, jax.random.PRNGKey(0))
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size,
@@ -47,8 +59,8 @@ def setup(arch, batch=4, prompt=8):
     return jcfg, jp, cfg, jax.tree.map(np.asarray, jp), toks
 
 
-def engines(arch, **scfg):
-    jcfg, jp, cfg, np_params, toks = setup(arch)
+def engines(arch, drop=False, **scfg):
+    jcfg, jp, cfg, np_params, toks = setup(arch, drop=drop)
     ref = JEngine(jcfg, jp, JServeConfig(**scfg))
     port = Engine(cfg, weights.lm_params_from_numpy(np_params, "cpu"),
                   ServeConfig(**scfg), device="cpu")
@@ -114,6 +126,50 @@ def test_greedy_generations_identical_to_reference_mamba(arch, quant_bits,
     if slots == 2:
         st = port.stats()["scheduler"]
         assert st["recycles"] == 2 and st["spills"] == 2
+
+
+@pytest.mark.parametrize("slots", [4, 2])
+@pytest.mark.parametrize("quant_bits", [0, 16])
+@pytest.mark.parametrize("arch", MOE)
+def test_greedy_generations_identical_to_reference_moe(arch, quant_bits,
+                                                       slots):
+    """The ``moe`` family at the no-drop capacity factor: every prefill
+    and decode tick routes through ``models.moe``."""
+    ref, port, toks = engines(arch, max_len=32, max_slots=slots,
+                              quant_bits=quant_bits)
+    margins = smallest_margin(ref)
+    want = ref.generate(toks, max_new=12)
+    got = port.generate(toks, max_new=12)
+    print(f"{arch} quant_bits={quant_bits} slots={slots}: smallest top-1 / "
+          f"top-2 logit margin of the reference's sampled rows "
+          f"{min(margins):.3e}")
+    np.testing.assert_array_equal(got, want)
+    assert port.stats() == ref.stats()
+    if slots == 2:
+        st = port.stats()["scheduler"]
+        assert st["recycles"] == 2 and st["spills"] == 2
+
+
+@pytest.mark.parametrize("quant_bits", [0, 16])
+def test_moe_engine_at_the_default_capacity_factor(quant_bits):
+    """olmoe-1b-7b at capacity factor 1.25: prefills drop (token, expert)
+    assignments (the port's count over the same prompts is nonzero, and
+    its routing is the reference's, ``tests/test_torch_moe.py``); the
+    decode ticks never do.  Greedy generations identical through 2
+    slots."""
+    arch = "olmoe-1b-7b"
+    _, _, cfg, np_params, toks = setup(arch, drop=True)
+    assert cfg.capacity_factor == 1.25
+    p = weights.lm_params_from_numpy(np_params, "cpu")
+    dropped = sum(int(T.forward(cfg, p, {"tokens": torch.as_tensor(
+        row[None])})[1]["dropped"]) for row in toks)
+    assert dropped > 0
+    ref, port, toks = engines(arch, drop=True, max_len=32, max_slots=2,
+                              quant_bits=quant_bits)
+    want = ref.generate(toks, max_new=12)
+    got = port.generate(toks, max_new=12)
+    np.testing.assert_array_equal(got, want)
+    assert port.stats() == ref.stats()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -196,10 +252,12 @@ def test_obs_spans_and_token_counter():
 
 
 @pytest.mark.parametrize("bits", [8, 16, 7, 15])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE[:1])
 def test_quantize_tree_bitwise_reference(arch, bits):
     """The published bf16 trees (float32 dense weights, bf16 embedding
-    table and norms, ROADMAP C2), so both float widths are quantized."""
+    table and norms, ROADMAP C2), so both float widths are quantized; for
+    ``moe`` also the float32 router and the bf16 ``(L, E, d_in, d_out)``
+    expert stacks, one scale each."""
     jcfg = JC.reduced(JC.get(arch))
     with jax.threefry_partitionable(False):
         jp = JT.init(jcfg, jax.random.PRNGKey(0))
@@ -243,7 +301,8 @@ def test_temperature_sampling_is_valid_and_seeded():
 
 def test_quantized_head_layout():
     for arch, tied in (("qwen2-1.5b", True), ("deepseek-7b", False),
-                       ("mamba2-780m", False), ("zamba2-1.2b", False)):
+                       ("mamba2-780m", False), ("zamba2-1.2b", False),
+                       ("olmoe-1b-7b", False)):
         _, _, cfg, np_params, _ = setup(arch)
         eng = Engine(cfg, weights.lm_params_from_numpy(np_params, "cpu"),
                      ServeConfig(max_len=16, max_slots=1, quant_bits=8),

@@ -171,13 +171,16 @@ def leaf_specs(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen2-1.5b",
+                                  "olmoe-1b-7b"])
 @pytest.mark.parametrize("over", [{}, {"param_dtype": "float32"},
                                   {"lsq_rank": 4}],
                          ids=["published", "float32", "low-rank"])
 def test_init_tree_matches_reference_layout(arch, over):
     """Names, shapes and dtypes, the reference's promotion of full-rank
-    weights drawn at the default std to float32 included (ROADMAP C2)."""
+    weights drawn at the default std to float32 included (ROADMAP C2; a
+    ``moe`` block's experts keep the param dtype, its router is
+    float32)."""
     jcfg = JC.reduced(JC.get(arch), **over)
     cfg = C.reduced(C.get(arch), **over)
     with jax.threefry_partitionable(False):

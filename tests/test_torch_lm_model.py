@@ -1,6 +1,10 @@
 """Port parity, the LM (``repro_torch.models.transformer``) for reduced
 deepseek-7b (``dense``, untied head, MHA), qwen2-1.5b (``dense``, tied
-embeddings, GQA, QKV bias), mamba2-780m (``ssm``) and zamba2-1.2b
+embeddings, GQA, QKV bias), olmoe-1b-7b and moonshot-v1-16b-a3b
+(``moe``, at the no-drop capacity factor ``num_experts / top_k`` as the
+reference's ``tests/test_decode_consistency.py`` runs them, and at the
+default 1.25, where a prefill drops tokens in both packages),
+mamba2-780m (``ssm``) and zamba2-1.2b
 (``hybrid``: mamba layers and one shared attention + MLP block), in
 float32 on the reference's own initialised parameters: ``forward``,
 ``prefill``, ``decode_step``, ``prefill_into_slot`` and
@@ -12,6 +16,8 @@ and ``test_sliding_window_decode_matches_windowed_forward``); an inactive
 slot kept bit for bit; the families not ported refused.  The mamba
 layers' scans run through the SSD scan kernel's entry point, its plain
 version here."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,14 +31,21 @@ from repro_torch import weights
 from repro_torch.models import transformer as T
 
 ATOL = 1e-4
-ARCHS = ["deepseek-7b", "qwen2-1.5b", "mamba2-780m", "zamba2-1.2b"]
+MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
+ARCHS = ["deepseek-7b", "qwen2-1.5b", *MOE, "mamba2-780m", "zamba2-1.2b"]
 
 
-def setup(arch):
-    jcfg = JC.reduced(JC.get(arch), compute_dtype="float32",
-                      param_dtype="float32")
-    cfg = C.reduced(C.get(arch), compute_dtype="float32",
-                    param_dtype="float32")
+def setup(arch, drop=False):
+    """Reduced float32 configs of both packages, the reference's init tree
+    and its port, and (2, 12) tokens.  A ``moe`` config gets the no-drop
+    capacity factor, as the reference's tests give it, unless ``drop``."""
+    over = dict(compute_dtype="float32", param_dtype="float32")
+    jcfg = JC.reduced(JC.get(arch), **over)
+    cfg = C.reduced(C.get(arch), **over)
+    if cfg.family == "moe" and not drop:
+        cf = cfg.num_experts / cfg.top_k
+        jcfg = dataclasses.replace(jcfg, capacity_factor=cf)
+        cfg = dataclasses.replace(cfg, capacity_factor=cf)
     with jax.threefry_partitionable(False):
         jp = JT.init(jcfg, jax.random.PRNGKey(0))
     p = weights.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
@@ -68,15 +81,21 @@ def close_caches(cache, jcache):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_and_prefill_match_reference(arch):
     jcfg, jp, cfg, p, toks = setup(arch)
-    want, _, jcaches = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
-                                  emit_caches=True)
+    want, jaux, jcaches = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                                     emit_caches=True)
     got, aux, caches = T.forward(cfg, p, {"tokens": tk(toks)},
                                  emit_caches=True)
     assert got.dtype == torch.float32 and got.shape == (2, 12,
                                                         cfg.vocab_size)
     close(got, want)
     close_caches(caches, jcaches)
-    assert float(aux["aux_loss"]) == 0.0
+    if cfg.family == "moe":
+        for name in ("aux_loss", "router_z_loss"):
+            np.testing.assert_allclose(float(aux[name]), float(jaux[name]),
+                                       rtol=1e-5)
+        assert int(aux["dropped"]) == 0
+    else:
+        assert float(aux["aux_loss"]) == 0.0
     want, jcache = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :7])},
                               max_len=16)
     got, cache = T.prefill(cfg, p, {"tokens": tk(toks[:, :7])}, max_len=16)
@@ -247,8 +266,37 @@ def test_prompt_shorter_than_the_conv_continues_forward(arch):
         close(lg[:, 0], full[:, t].numpy())
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "moonshot-v1-16b-a3b",
-                                  "internvl2-76b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_prefill_drops_tokens_like_reference(arch):
+    """At the default capacity factor 1.25 a full-sequence pass drops
+    (token, expert) assignments; the port drops the reference's (the
+    logits and aux losses agree), through ``forward``, ``prefill`` and
+    ``prefill_into_slot``, and counts them."""
+    jcfg, jp, cfg, p, toks = setup(arch, drop=True)
+    assert cfg.capacity_factor == 1.25
+    want, jaux, _ = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    got, aux, _ = T.forward(cfg, p, {"tokens": tk(toks)})
+    close(got, want)
+    for name in ("aux_loss", "router_z_loss"):
+        np.testing.assert_allclose(float(aux[name]), float(jaux[name]),
+                                   rtol=1e-5)
+    assert int(aux["dropped"]) > 0
+    want, _ = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, max_len=16)
+    got, _ = T.prefill(cfg, p, {"tokens": tk(toks)}, max_len=16)
+    close(got, want)
+    want, jcache = slotted_run(
+        JT, jcfg, jp, toks, jnp.asarray,
+        JT.init_slot_cache(jcfg, 3, 16, dtype=jnp.float32))
+    got, cache = slotted_run(
+        T, cfg, p, toks, tk, T.init_slot_cache(cfg, 3, 16,
+                                               dtype=torch.float32,
+                                               device="cpu"))
+    for g, w in zip(got, want):
+        close(g, w)
+    close_caches(cache, jcache)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-76b", "hubert-xlarge"])
 def test_other_families_are_refused(arch):
     cfg = C.reduced(C.get(arch))
     calls = [lambda: T.init(cfg, torch.Generator().manual_seed(0)),
