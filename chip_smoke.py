@@ -237,6 +237,30 @@ Phases (any failure exits non-zero; nothing is caught):
     of ``forward`` at the no-drop capacity factor, on the first
     MOE_DECODE_LAYERS of the 16 layers (float32 experts at 16 layers
     would take 25.8 GB).
+18. The vlm and audio families. (a) InternVL2-76B (``vlm``: d_model
+    8192, 64 heads / 8 KV heads of 128, d_ff 28,672 SwiGLU, vocab
+    128,256, untied head, 256 patch positions) at full width, cut in
+    depth to VLM_LAYERS of 80 layers, weights from a CUDA generator
+    seeded 0: ``Engine(quant_bits=16)`` over 8 slots, ``max_len`` 512,
+    16 requests with prompts of 16-128 tokens and ``max_new`` 8-32, each
+    with its own (1, 256, 8192) bfloat16 ``patch_embeds`` passed as
+    ``extra``; the same completion checks as phase 12, K5 launches =
+    prefills + decode ticks, every head output within 1e-5 x max|plain|;
+    then K5 at this (8,192 x 128,256) int16 head against its plain
+    version at M = 1, 8 and 64 (each at the plan ``Q15Matmul.plan``
+    reports) and timed at M = 8 beside the ``torch.mm`` yardstick; and,
+    the engine freed, the float32 slotted decode as in phase 12 after
+    256 patches and a prompt (``pos`` must count the patches), within
+    1e-3 of ``forward`` over the same patches and tokens.  (b)
+    HuBERT-XLarge (``audio``: 48 layers, d_model 1280, 16 heads, d_ff
+    5120 GELU, 504 classes, bidirectional) at full width and depth
+    through ``models.registry.make_prefill_step``: 8 clips of 1000
+    bfloat16 frames, ms per batch over 5 calls, frames/s and peak
+    memory; logits (8, 1000, 504) finite; frame 0's logits must move
+    with the last frame; a float32 forward of one 128-frame clip on the
+    card within 1e-3 x max|logits| of the same forward on the CPU.  This
+    path reaches no kernel: the reference's head is a dense with a bias,
+    outside any ``pallas_call``.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -244,6 +268,7 @@ The last lines are the ``{"kernels": [...]}`` record, the card's
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -335,6 +360,18 @@ MOE_PROMPT = (16, 256)    # prompt tokens: prefills that drop at cf 1.25
 MOE_NEW = (8, 32)
 MOE_ROUTING_TOKENS = 256  # tokens of the card-vs-CPU routing check
 MOE_DECODE_LAYERS = 4     # the f32 decode-vs-forward check, cut from 16
+VLM_ARCH = "internvl2-76b"  # phase 18 (a)'s model, at full width ...
+VLM_LAYERS = 6            # ... and cut in depth from 80 (PERF.md section 4)
+VLM_REQUESTS = 16
+VLM_PROMPT = (16, 128)    # text tokens after each request's 256 patches
+VLM_NEW = (8, 32)
+VLM_PATCH_STD = 0.02      # patch embeddings at the embedding table's scale
+AUDIO_ARCH = "hubert-xlarge"  # phase 18 (b)'s model, full width and depth
+AUDIO_CLIPS = 8
+AUDIO_FRAMES = 1_000      # 20 s at HuBERT's 50 frames/s
+AUDIO_CALLS = 5           # timed prefill calls
+AUDIO_F32_FRAMES = 128    # the float32 card-vs-CPU clip
+AUDIO_REL = 1e-3          # ... held to this x max|logits|
 
 
 def fail(msg: str) -> None:
@@ -2281,9 +2318,15 @@ def init_lm(torch, dev, cfg):
         by_dtype[str(t.dtype)[6:]] = by_dtype.get(str(t.dtype)[6:], 0) \
             + t.numel()
     shape = [f"{cfg.num_layers} layers", f"d_model {cfg.d_model}"]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "audio"):
         shape.append(f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads "
                      f"of {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_kind}")
+    if cfg.family == "vlm":
+        shape.append(f"{cfg.num_patches} patch positions in front of the "
+                     "text")
+    if cfg.family == "audio":
+        shape.append("bidirectional encoder over frame embeddings, no "
+                     "embedding table")
     if cfg.family == "moe":
         shape.append(f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads "
                      f"of {cfg.head_dim}, {cfg.num_experts} experts top-"
@@ -2298,8 +2341,9 @@ def init_lm(torch, dev, cfg):
         shape.append(f"one shared attention block ({cfg.num_heads} heads of "
                      f"{cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_kind}) after "
                      f"every {cfg.attn_every} mamba layers")
-    shape.append(f"vocab {cfg.vocab_size}, "
-                 f"{'tied' if cfg.tie_embeddings else 'untied'} head")
+    shape.append(f"vocab {cfg.vocab_size}, " + (
+        "a frame head with a bias" if cfg.family == "audio" else
+        f"{'tied' if cfg.tie_embeddings else 'untied'} head"))
     print(f"{cfg.name} ({cfg.family}) at full width: {', '.join(shape)}; "
           f"{sum(by_dtype.values()):,} parameters ("
           + ", ".join(f"{n:,} {k}" for k, n in by_dtype.items())
@@ -2452,9 +2496,11 @@ def mamba_cfgs():
 
 
 def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
-             max_len: int, reqs: list, label: str) -> dict:
-    """``Engine(quant_bits=16)`` on ``cuda`` over ``reqs``, the launch
-    counts zeroed just before the run and read just after.  Every K5 call
+             max_len: int, reqs: list, label: str,
+             extras: list | None = None) -> dict:
+    """``Engine(quant_bits=16)`` on ``cuda`` over ``reqs`` (with each
+    request's ``extra`` inputs from ``extras``), the launch counts zeroed
+    just before the run and read just after.  Every K5 call
     (the head) and every K6 call (each mamba layer's prefill scan) is
     recorded and held against its plain version on the same inputs after
     the run; every request must complete with its budget of tokens in
@@ -2497,7 +2543,8 @@ def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
         return y, st
     eng._head_logits, ssd_ops.ssd_scan = recorded_head, recorded_scan
     Q15Matmul.launches = SSDScan.launches = 0   # this path's run only
-    rids = [eng.submit(toks, new) for toks, new in reqs]
+    rids = [eng.submit(toks, new, extra=extras[i] if extras else None)
+            for i, (toks, new) in enumerate(reqs)]
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
@@ -2560,8 +2607,12 @@ def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
     tokens = st["tokens_generated"]
     pre, dec, tick = (spans[n] for n in ("lm.prefill", "lm.decode",
                                          "lm.tick"))
+    patches = int(extras[0]["patch_embeds"].shape[1]) if extras else 0
     print(f"{label}: {len(reqs)} requests (prompts "
-          f"{sum(len(t) for t, _ in reqs)} tokens, budgets {tokens} tokens) "
+          f"{sum(len(t) for t, _ in reqs)} tokens"
+          + (f", each after its {patches} patch positions" if patches
+             else "")
+          + f", budgets {tokens} tokens) "
           f"over {slots} slots, max_len {max_len}, quant_bits 16: "
           f"{st['prefills']} prefills + {st['decode_ticks']} decode ticks, "
           f"{tokens} tokens in {wall:.3f} s = {tokens / wall:,.1f} tokens/s; "
@@ -2770,13 +2821,15 @@ def cache_rows(cache, slot: int) -> dict:
     return rows
 
 
-def lm_decode_continuity(torch, np, dev, cfg, params, lens, label) -> None:
+def lm_decode_continuity(torch, np, dev, cfg, params, lens, label, *,
+                         patches=None) -> None:
     """The full-width weights in float32 (TF32 off): a 4-slot cache, slots
-    0 and 2 admitted at ``lens`` prompt tokens, 16 slotted decode ticks
-    with slot 2 inactive for the middle 4.  Each decode logit row must be
-    within F32_DECODE_ATOL of ``forward`` on the whole sequence, and the
-    inactive and empty slots' cache rows (K/V, SSM state, conv tail) and
-    ``pos`` must stay bitwise."""
+    0 and 2 admitted at ``lens`` prompt tokens (each after its (1, P, D)
+    ``patches``, for a vlm), 16 slotted decode ticks with slot 2 inactive
+    for the middle 4.  Each decode logit row must be within
+    F32_DECODE_ATOL of ``forward`` on the whole sequence (its patches
+    too), and the inactive and empty slots' cache rows (K/V, SSM state,
+    conv tail) and ``pos`` must stay bitwise."""
     import dataclasses
     from repro_torch.models import transformer as T
     from repro_torch.pytree import tree_map
@@ -2788,12 +2841,20 @@ def lm_decode_continuity(torch, np, dev, cfg, params, lens, label) -> None:
     steps, idle, slots = 16, range(6, 10), (0, 2)
     rng = np.random.default_rng(SEED + 1)
     seqs = [rng.integers(0, cfg.vocab_size, n + steps) for n in lens]
-    cache = T.init_slot_cache(cfg32, 4, max(lens) + steps, dtype=torch.float32,
-                              device=dev)
-    for slot, seq, n in zip(slots, seqs, lens):
+    extra = ([{"patch_embeds": pe.float()} for pe in patches] if patches
+             else [{}, {}])
+    n_patch = patches[0].shape[1] if patches else 0
+    cache = T.init_slot_cache(cfg32, 4, n_patch + max(lens) + steps,
+                              dtype=torch.float32, device=dev)
+    for j, (slot, seq, n) in enumerate(zip(slots, seqs, lens)):
         _, cache = T.prefill_into_slot(
             cfg32, p32, cache, {"tokens": torch.as_tensor(seq[None, :n],
-                                                          device=dev)}, slot)
+                                                          device=dev),
+                                **extra[j]}, slot)
+        if int(cache["pos"][slot]) != n_patch + n:
+            fail(f"{label} f32 prefill_into_slot: pos "
+                 f"{int(cache['pos'][slot])}, want {n_patch} patch "
+                 f"positions + {n} tokens")
     fed, got = [0, 0], [[], []]
     for t in range(steps):
         active = [True, False, t not in idle, False]
@@ -2820,7 +2881,7 @@ def lm_decode_continuity(torch, np, dev, cfg, params, lens, label) -> None:
     for j in range(2):
         n = lens[j] + fed[j]
         full, _, _ = T.forward(cfg32, p32, {"tokens": torch.as_tensor(
-            seqs[j][None, :n], device=dev)})
+            seqs[j][None, :n], device=dev), **extra[j]})
         e = float((torch.stack(got[j]) - full[0, lens[j]:n]).abs().max())
         if not e <= F32_DECODE_ATOL:
             fail(f"{label} f32 slotted decode vs forward (slot {slots[j]}): "
@@ -2828,7 +2889,10 @@ def lm_decode_continuity(torch, np, dev, cfg, params, lens, label) -> None:
         err = max(err, e)
     torch.cuda.synchronize()
     print(f"{label} f32 slotted decode at full width: slots {slots} admitted "
-          f"at {lens} prompt tokens in a 4-slot cache, {steps} ticks with "
+          f"at {lens} prompt tokens"
+          + (f" after {n_patch} patch positions each (pos counted them)"
+             if n_patch else "")
+          + f" in a 4-slot cache, {steps} ticks with "
           f"slot 2 inactive for ticks {idle.start}-{idle.stop - 1}: max "
           f"|decode - forward| {err:.3e} <= {F32_DECODE_ATOL} over "
           f"{fed[0] + fed[1]} logit rows of {cfg.vocab_size}; the inactive "
@@ -3235,6 +3299,183 @@ def moe_path(torch, np, dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the vlm and audio families at full width (InternVL2-76B through
+# K5, HuBERT-XLarge's encoder through the registry)
+# ---------------------------------------------------------------------------
+
+def vlm_head(torch, dev, wq, scale) -> None:
+    """K5 at InternVL2's (8,192 x 128,256) int16 head: against its plain
+    version at M = 1 (a prefill), the engine's slots (a decode tick) and
+    64, at the plan ``Q15Matmul.plan`` reports for each; then its device
+    time at the slots' M beside the ``torch.mm`` yardstick, in turns
+    (K5, mm, mm, K5), and its byte bound."""
+    from repro_torch.kernels.q15_matmul.kernel import Q15Matmul
+    mm = Q15Matmul()
+    k, n = wq.shape
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    plans, err = {}, 0.0
+    for rows in (1, LM_SLOTS, 64):
+        x = torch.randn(rows, k, generator=g, device=dev)
+        plans[rows] = mm.plan(wq, rows)
+        err = max(err, k5_error(torch, mm(x, wq, scale), x, wq, scale,
+                                f"{VLM_ARCH} head, int16 {rows}x{k}x{n}"))
+    cycles = sleep_rate(torch)
+    x = torch.randn(LM_SLOTS, k, generator=g, device=dev)
+    ksets = [(x, wq, scale)]
+    lsets = [(x.to(torch.bfloat16), wq.to(torch.bfloat16))]
+    kern, lib = [], []
+    for fn, sets, out in ((mm, ksets, kern), (torch.mm, lsets, lib),
+                          (torch.mm, lsets, lib), (mm, ksets, kern)):
+        out.append(queued(torch, fn, sets, 20, 3, cycles)[0])
+    del lsets
+    m = LM_SLOTS
+    nbytes = 4 * m * k + 2 * k * n + 4 + 4 * m * n
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(2 * m * k * n / BF16_FLOP_PER_S, m * n / FP32_OPS_PER_S) * 1e3
+    ms, lib_ms = min(kern), min(lib)
+
+    def us(ts):
+        return ", ".join(f"{t * 1e3:.3f}" for t in ts)
+    print(f"VLM head K5 ({VLM_ARCH}, int16 {k} x {n}, {2 * k * n:,} B of "
+          f"weights): against plain at " + ", ".join(
+              f"M {rows} ({p[0]} loads, {p[1]} column tile(s) per warp)"
+              for rows, p in plans.items())
+          + f", within {K5_REL} x max|plain| (largest |diff| {err:.3e}); "
+          f"M = {m}: device {ms * 1e3:.3f} us per call (best of 2 rounds of "
+          f"20 behind a sleep: {us(kern)}), torch.mm of bfloat16 x against "
+          f"the weights in bfloat16 {lib_ms * 1e3:.3f} us ({us(lib)}): "
+          f"{ms / lib_ms:.3f} x its time; bound "
+          f"{max(bound, t_ops) * 1e3:.3f} us ({nbytes:,} B over 3.35 TB/s = "
+          f"{bound * 1e3:.3f} us; tensor-core FLOP {t_ops * 1e3:.3f} us), "
+          f"K5 at {max(bound, t_ops) / ms:.1%} of it; "
+          f"{nbytes / ms / 1e6:,.0f} GB/s")
+
+
+def vlm_path(torch, np, dev, card) -> None:
+    """Phase 18 (a): InternVL2-76B at full width, cut to VLM_LAYERS
+    layers, through the engine (K5 at its head), every request with its
+    own 256 patch embeddings; K5 at this head against plain and timed;
+    then, the engine freed, the float32 slotted decode after patches and
+    a prompt against ``forward`` over the same patches and tokens."""
+    import dataclasses
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    gc.collect()        # an engine and its scheduler refer to each other
+    torch.cuda.empty_cache()
+    full = configs.get(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    print(f"VLM path: {VLM_ARCH} cut in depth from {full.num_layers} to "
+          f"{VLM_LAYERS} layers (the engine holds the float32 init tree, "
+          f"its int16 tree and its bfloat16 tree on one card)")
+    params = init_lm(torch, dev, cfg)
+    reqs = lm_requests(np, cfg.vocab_size, VLM_REQUESTS, VLM_PROMPT, VLM_NEW)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    extras = [{"patch_embeds": (VLM_PATCH_STD * torch.randn(
+        1, cfg.num_patches, cfg.d_model, generator=g,
+        device=dev)).to(torch.bfloat16)} for _ in reqs]
+    out = serve_lm(torch, np, dev, card, cfg, params, slots=LM_SLOTS,
+                   max_len=LM_MAX_LEN, reqs=reqs, extras=extras,
+                   label="VLM path")
+    eng = out.pop("eng")
+    vlm_head(torch, dev, eng._head_wq, eng._head_scale)
+    del eng
+    gc.collect()        # the engine's scheduler refers back to it
+    torch.cuda.empty_cache()
+    lm_decode_continuity(torch, np, dev, cfg, params, (32, 57),
+                         f"VLM ({VLM_LAYERS} of {full.num_layers} layers)",
+                         patches=[e["patch_embeds"] for e in extras[:2]])
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"VLM path (phase 18 a) wall {time.perf_counter() - t0:.1f} s")
+
+
+def audio_path(torch, np, dev, card) -> None:
+    """Phase 18 (b): HuBERT-XLarge's encoder at full width and depth
+    through ``registry.make_prefill_step`` (its serving entry point):
+    AUDIO_CLIPS clips of AUDIO_FRAMES bfloat16 frames, timed over
+    AUDIO_CALLS calls; logits of the right shape and finite; frame 0's
+    logits move with the last frame (bidirectional on the card); a
+    float32 forward of one clip on the card within AUDIO_REL x max|logits|
+    of the same forward on the CPU."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.pytree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = configs.get(AUDIO_ARCH)
+    params = init_lm(torch, dev, cfg)
+    step = registry.make_prefill_step(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    frames = torch.randn(AUDIO_CLIPS, AUDIO_FRAMES, cfg.d_model, generator=g,
+                         device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(AUDIO_CALLS):
+        t1 = time.perf_counter()
+        logits = step(params, {"frames": frames})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    want = (AUDIO_CLIPS, AUDIO_FRAMES, cfg.vocab_size)
+    if tuple(logits.shape) != want or logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"audio path: logits {tuple(logits.shape)} {logits.dtype}, "
+             f"finite {bool(torch.isfinite(logits).all())}; want {want} "
+             "float32 and finite")
+    p50 = float(np.median(times))
+    one = frames[:1].clone()
+    moved = one.clone()
+    moved[0, -1] = torch.randn(cfg.d_model, generator=g,
+                               device=dev).to(torch.bfloat16)
+    d0 = float((step(params, {"frames": moved})[0, 0]
+                - step(params, {"frames": one})[0, 0]).abs().max())
+    if not d0 > 0:
+        fail("audio path: changing the last frame left frame 0's logits "
+             "unchanged (the encoder is not bidirectional on the card)")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    clip = frames[:1, :AUDIO_F32_FRAMES].float()
+    step32 = registry.make_prefill_step(cfg32)
+    card32 = step32(p32, {"frames": clip}).cpu()
+    t1 = time.perf_counter()
+    host32 = step32(tree_map(lambda t: t.cpu(), p32),
+                    {"frames": clip.cpu()})
+    host_s = time.perf_counter() - t1
+    err = float((card32 - host32).abs().max())
+    lim = AUDIO_REL * float(host32.abs().max())
+    if not err <= lim:
+        fail(f"audio path f32 forward card vs CPU: max |diff| {err:.3e} > "
+             f"{lim:.3e}")
+    print(f"audio path: {AUDIO_ARCH} through registry.make_prefill_step "
+          f"(the encoder's prefill is its forward): {AUDIO_CLIPS} clips x "
+          f"{AUDIO_FRAMES} bfloat16 frames -> logits {tuple(logits.shape)} "
+          f"float32, finite; {AUDIO_CALLS} calls: p50 {p50 * 1e3:.3f} ms per "
+          f"batch (calls {', '.join(f'{t * 1e3:.3f}' for t in times)} ms, "
+          f"host clock to a synchronize), "
+          f"{AUDIO_CLIPS * AUDIO_FRAMES / p50:,.0f} frames/s; peak device "
+          f"memory over the calls {peak:,} B ({peak / 2**30:.2f} GiB, of "
+          f"which {held / 2**30:.2f} GiB held before them: the weights and "
+          f"frames); card {card}")
+    print(f"audio path: bidirectional on the card: changing frame "
+          f"{AUDIO_FRAMES - 1} moves frame 0's logits by up to {d0:.3e}; "
+          f"float32 forward of one {AUDIO_F32_FRAMES}-frame clip at all "
+          f"{cfg.num_layers} layers: card vs CPU max |diff| {err:.3e} <= "
+          f"{AUDIO_REL} x max|logits| = {lim:.3e} (CPU {host_s:.1f} s); this "
+          f"path reaches no TPU kernel in the reference either (its head is "
+          f"a dense with a bias, outside any pallas_call), so no kernel of "
+          f"the port runs here")
+    del params, p32, logits
+    torch.cuda.empty_cache()
+    print(f"audio path (phase 18 b) wall {time.perf_counter() - t0:.1f} s")
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's paths on one "
@@ -3306,6 +3547,9 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     moe_path(torch, np, dev, card)
+    torch.cuda.empty_cache()
+    vlm_path(torch, np, dev, card)
+    audio_path(torch, np, dev, card)
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"
     rows = [("q15_step", f"{src}:119", launches, max_err),
             ("q15_step_dense", f"{src}:146", k2["launches"], dense_err),

@@ -21,12 +21,24 @@ import torch
 import torch.nn.functional as F
 
 
+class _ShapeOnly:
+    """A stand-in for a ``torch.Generator`` on the ``meta`` device: the
+    initialisers given it build their leaves' shapes and dtypes and draw
+    and allocate nothing (``torch.Generator`` has no ``meta`` device)."""
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = _ShapeOnly()
+
+
 def truncated_normal(generator: torch.Generator, shape, std: float = 0.02,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``std`` times a standard normal truncated to [-2, 2], drawn in
     float32 on the generator's device and cast to ``dtype``."""
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    if generator is not SHAPE_ONLY:
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
     return (std * t).to(dtype)
 
 

@@ -1,0 +1,195 @@
+"""Registry: per-architecture serving functions and shape-only stand-ins
+(reference ``repro.models.registry``, its serving half).
+
+  * ``abstract_params(cfg)``           — the init tree as ``meta`` tensors
+  * ``input_specs(cfg, shape)``        — ``meta`` batch stand-ins
+  * ``abstract_cache(cfg, shape)``     — decode-cache stand-ins
+  * ``make_prefill_step(cfg, shape)``  — (params, batch) -> logits for an
+                                         encoder, (logits, cache) otherwise
+  * ``make_decode_step(cfg, shape)``   — (params, cache, tokens) -> ...
+  * ``param_count`` / ``active_param_count`` / ``step_flops_model``
+
+A stand-in is a ``meta`` tensor: its ``shape`` and ``dtype`` are the
+reference's ``ShapeDtypeStruct``'s, and it holds no storage, so the full
+configs (``nemotron-4-340b`` included) are counted without allocating.
+``long_*`` decode shapes pass ``window=cfg.sliding_window`` to the hybrid
+family, as in the reference.
+
+The training half (``abstract_opt``, ``make_train_step``), meshes,
+sequence parallelism and split-KV decoding belong with ``train/`` and
+``launch/`` (ROADMAP A10) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.compress.tree import dequantize_tree
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.pytree import tree_map
+from . import layers as L
+from . import transformer as T
+
+_A10 = ("belongs with train/ and launch/ (ROADMAP A10), which are not "
+        "ported yet")
+
+
+def _no_mesh(mesh=None, seq_parallel: bool = False,
+             splitkv: bool = False) -> None:
+    if mesh is not None or seq_parallel or splitkv:
+        raise NotImplementedError(
+            f"meshes, sequence parallelism and split-KV decoding: {_A10}")
+
+
+def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def init(cfg: ModelConfig, generator: torch.Generator):
+    return T.init(cfg, generator)
+
+
+def abstract_params(cfg: ModelConfig):
+    """``init``'s tree as ``meta`` tensors: the reference's leaf names,
+    shapes and dtypes (float32 full-rank dense weights, ROADMAP C2), with
+    nothing drawn or allocated."""
+    return T.init(cfg, L.SHAPE_ONLY)
+
+
+def abstract_opt(cfg: ModelConfig, acfg=None):
+    raise NotImplementedError(f"abstract_opt: the optimizer {_A10}")
+
+
+def make_train_step(cfg: ModelConfig, acfg=None, mesh=None,
+                    seq_parallel: bool = False):
+    raise NotImplementedError(f"make_train_step: LM training {_A10}")
+
+
+def _window_for(cfg: ModelConfig, shape: ShapeConfig):
+    if shape.name == "long_500k" and cfg.family == "hybrid":
+        return cfg.sliding_window
+    return None
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Batch stand-ins for one (arch x shape) cell: tokens, audio's
+    frames, a vlm's patch embeddings, training labels."""
+    B, S = shape.global_batch, shape.seq_len
+    out: dict = {}
+    if shape.kind == "decode":
+        out["tokens"] = _spec((B, 1), torch.int32)
+        return out
+    if cfg.family == "audio":
+        out["frames"] = _spec((B, S, cfg.d_model), torch.bfloat16)
+    else:
+        out["tokens"] = _spec((B, S), torch.int32)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = _spec((B, cfg.num_patches, cfg.d_model),
+                                    torch.bfloat16)
+    if shape.kind == "train":
+        out["labels"] = _spec((B, S), torch.int32)
+    return out
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeConfig):
+    """Decode-cache stand-ins with ``max_len = shape.seq_len`` (one new
+    token over a cache of ``seq_len``)."""
+    return T.cache_spec(cfg, shape.global_batch, shape.seq_len,
+                        dtype=cfg.cdtype)
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
+                      mesh=None, seq_parallel: bool = False):
+    """An encoder's prefill is its forward pass: (params, batch) ->
+    logits (the audio family's serving entry point).  Otherwise
+    (params, batch) -> (logits, cache)."""
+    _no_mesh(mesh, seq_parallel)
+    window = _window_for(cfg, shape) if shape else None
+
+    def prefill_step(params, batch):
+        if cfg.is_encoder:
+            return T.forward(cfg, params, batch, window=window)[0]
+        return T.prefill(cfg, params, batch, window=window)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
+                     mesh=None, splitkv: bool = False):
+    _no_mesh(mesh, splitkv=splitkv)
+    window = _window_for(cfg, shape) if shape else None
+
+    def decode_step(params, cache, tokens):
+        return T.decode_step(cfg, params, cache, tokens, window=window)
+    return decode_step
+
+
+def abstract_quantized_params(cfg: ModelConfig, bits: int = 8):
+    """(qparams, scales) stand-ins for the L-S-Q serving path: every
+    >=2-D floating leaf becomes int8/int16, with a float32 0-dim scale for
+    every leaf."""
+    dt = torch.int8 if bits == 8 else torch.int16
+
+    def q(leaf):
+        if leaf.ndim >= 2 and leaf.is_floating_point():
+            return _spec(leaf.shape, dt)
+        return leaf
+    ap = abstract_params(cfg)
+    qp = tree_map(q, ap)
+    scales = tree_map(lambda _: _spec((), torch.float32), ap)
+    return qp, scales
+
+
+def make_decode_step_quantized(cfg: ModelConfig,
+                               shape: ShapeConfig | None = None,
+                               bits: int = 8, mesh=None,
+                               splitkv: bool = False):
+    """Decode over int-quantized weights: the tree is dequantized to
+    bfloat16 each call (``compress.tree.dequantize_tree``)."""
+    _no_mesh(mesh, splitkv=splitkv)
+    window = _window_for(cfg, shape) if shape else None
+
+    def decode_step(qparams, scales, cache, tokens):
+        params = dequantize_tree(qparams, scales)
+        return T.decode_step(cfg, params, cache, tokens, window=window)
+    return decode_step
+
+
+def step_flops_model(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS for the roofline's usefulness ratio: 6 N D (train),
+    2 N per token otherwise, N the active parameters."""
+    n_active = active_param_count(cfg)
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
+    mult = 6.0 if shape.kind == "train" else 2.0
+    return mult * n_active * tokens
+
+
+def _leaves_with_keys(tree, path=""):
+    """(key, leaf) of every leaf, the key spelled as ``jax.tree_util.
+    keystr`` spells a dict path (``['blocks']['moe']['w_in']``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_keys(v, f"{path}['{k}']")
+    else:
+        yield path, tree
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(math.prod(leaf.shape)
+               for _, leaf in _leaves_with_keys(abstract_params(cfg)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token: a MoE expert weight counts top_k of
+    num_experts; the embedding lookup does not count, the unembedding
+    matmul does."""
+    total = 0
+    for key, leaf in _leaves_with_keys(abstract_params(cfg)):
+        n = math.prod(leaf.shape)
+        if "moe" in key and "router" not in key:
+            n = n * cfg.top_k // cfg.num_experts
+        if "embed" in key:
+            continue
+        total += n
+    return total

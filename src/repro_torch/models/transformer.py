@@ -1,11 +1,17 @@
-"""LM assembly (reference ``repro.models.transformer``) for the families
-ported so far:
+"""LM assembly (reference ``repro.models.transformer``) for every family
+of the reference:
 
   dense : [rmsnorm -> GQA attention -> rmsnorm -> MLP] x L
   moe   : [rmsnorm -> GQA attention -> rmsnorm -> MoE] x L
   ssm   : [rmsnorm -> Mamba-2] x L
   hybrid: the Mamba-2 backbone with ONE shared attention + MLP block
           applied after every ``attn_every`` mamba layers (zamba2)
+  vlm   : the dense decoder over precomputed patch embeddings
+          (``batch["patch_embeds"]``, (B, P, D)) put in front of the text
+          embeddings; logits and the text offset start after the patches
+  audio : a bidirectional encoder over precomputed frame embeddings
+          (``batch["frames"]``, (B, S, D)) with a frame-classification
+          head that has a bias; no embedding table and no decode path
 
 Parameters are a nested dict of tensors; the per-layer parameters are
 stacked with a leading L axis (``params["blocks"]``), as the reference
@@ -20,12 +26,11 @@ keeps the reference's cache layouts: ``(L, B, S_max, KV, hd)`` K/V
 (``(n_groups, ...)`` for the hybrid shared block), ``(L, B, H, N, P)``
 float32 SSM states and ``(L, B, 3, width)`` conv tails, with one shared
 fill level ``len`` (a Python int here) or, for continuous batching, a
-per-slot fill level ``pos`` ((S,) int32 tensor).  Decode writes the cache
+per-slot fill level ``pos`` ((S,) int32 tensor).  A vlm cache holds the
+patch positions too: its fill level counts them.  Decode writes the cache
 tensors in place and returns the cache dict; an inactive slot keeps its
 cache rows and ``pos`` bit for bit.
 
-The other families are not ported yet and raise ``NotImplementedError``:
-``vlm`` and ``audio`` (ROADMAP A9.2, their frontends and heads).
 Sequence parallelism, meshes and remat belong with training and
 ``launch/`` (A10).
 """
@@ -42,22 +47,6 @@ from . import attention as A
 from . import layers as L
 from . import mamba2 as S
 from . import moe as M
-
-_PORTED = ("dense", "moe", "ssm", "hybrid")
-_NOT_PORTED = {
-    "vlm": "ROADMAP A9.2: the vlm patch-embedding frontend",
-    "audio": "ROADMAP A9.2: the audio encoder and its frame head",
-}
-
-
-def require_ported(cfg) -> None:
-    """Raise for every family but ``dense``, ``moe``, ``ssm`` and
-    ``hybrid``, naming its ROADMAP item."""
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED.get(cfg.family, 'ROADMAP A9')}")
-
 
 def layer(tree, i: int):
     """Layer ``i`` of a stacked parameter tree: views, no copy."""
@@ -101,11 +90,12 @@ def _block_init(cfg, generator):
 def init(cfg, generator: torch.Generator) -> dict[str, Any]:
     """Parameters with the reference's leaf names, shapes and dtypes, drawn
     from ``generator`` on its device (not the reference's values: JAX's
-    PRNG is not reproduced)."""
-    require_ported(cfg)
+    PRNG is not reproduced).  Given ``layers.SHAPE_ONLY`` it builds the
+    same tree of ``meta`` tensors and draws and allocates nothing."""
     dt, dev = cfg.pdtype, generator.device
-    p: dict[str, Any] = {
-        "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt)}
+    p: dict[str, Any] = {}
+    if cfg.family != "audio":
+        p["embed"] = L.embed_init(generator, cfg.vocab_size, cfg.d_model, dt)
     p["blocks"] = _stack([_block_init(cfg, generator)
                           for _ in range(cfg.num_layers)])
     if cfg.family == "hybrid":
@@ -117,7 +107,10 @@ def init(cfg, generator: torch.Generator) -> dict[str, Any]:
             "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff,
                               cfg.mlp_kind, dtype=dt)}
     p["final_norm"] = L.rmsnorm_init(cfg.d_model, dt, dev)
-    if not cfg.tie_embeddings:
+    if cfg.family == "audio":
+        p["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                    bias=True, dtype=dt)
+    elif not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(generator, cfg.d_model, cfg.vocab_size,
                                     dtype=dt)
     return p
@@ -180,11 +173,21 @@ def _zero_aux(device):
 
 
 def _embed_inputs(cfg, params, batch):
-    """-> (x (B, S, D), positions (B, S), text offset 0)."""
-    x = L.embed_apply(params["embed"], batch["tokens"], cfg.cdtype)
+    """-> (x (B, S', D), positions (B, S'), text offset).  Audio takes its
+    frame embeddings in the compute dtype; vlm puts its patch embeddings
+    (in the compute dtype) in front of the text embeddings, and the text
+    starts at their count."""
+    if cfg.family == "audio":
+        x, off = batch["frames"].to(cfg.cdtype), 0
+    else:
+        x, off = L.embed_apply(params["embed"], batch["tokens"],
+                               cfg.cdtype), 0
+        if cfg.family == "vlm":
+            patches = batch["patch_embeds"].to(cfg.cdtype)
+            x, off = torch.cat([patches, x], dim=1), patches.shape[1]
     b, s = x.shape[:2]
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
-    return x, pos, 0
+    return x, pos, off
 
 
 def _stacked_forward(cfg, params, x, positions, *, window=None):
@@ -220,7 +223,6 @@ def _stacked_forward(cfg, params, x, positions, *, window=None):
 
 def backbone(cfg, params, batch, *, window=None):
     """-> (final normed hidden states, aux, caches, text offset)."""
-    require_ported(cfg)
     x, positions, off = _embed_inputs(cfg, params, batch)
     x, aux, caches = _stacked_forward(cfg, params, x, positions,
                                       window=window)
@@ -228,17 +230,25 @@ def backbone(cfg, params, batch, *, window=None):
     return x, aux, caches, off
 
 
-def _logits(cfg, params, x):
-    if not cfg.tie_embeddings and "lm_head" in params:
+def _logits(cfg, params, x, off: int = 0):
+    """The head (audio's with its bias) over the positions from ``off``
+    on: a vlm's text positions.  The head is row by row, so the rows are
+    cut before it rather than after."""
+    if off:
+        x = x[:, off:]
+    if cfg.family == "audio" or (not cfg.tie_embeddings
+                                 and "lm_head" in params):
         return L.dense_apply(params["lm_head"], x,
                              compute_dtype=cfg.cdtype).float()
     return L.unembed_apply(params["embed"], x, cfg.cdtype)
 
 
 def forward(cfg, params, batch, *, window=None, emit_caches=False):
-    """-> (logits float32, aux, caches or None)."""
-    x, aux, caches, _ = backbone(cfg, params, batch, window=window)
-    return _logits(cfg, params, x), aux, (caches if emit_caches else None)
+    """-> (logits float32, aux, caches or None); a vlm's logits cover its
+    text positions only."""
+    x, aux, caches, off = backbone(cfg, params, batch, window=window)
+    return (_logits(cfg, params, x, off), aux,
+            (caches if emit_caches else None))
 
 
 # ---------------------------------------------------------------------------
@@ -251,15 +261,27 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
     the CPU; a card asked for and absent raises): K/V in ``dtype`` for the
     attention layers, float32 SSM states and ``dtype`` conv tails for the
     mamba layers."""
-    require_ported(cfg)
-    device = resolve_device(device)
+    return _cache(cfg, batch_size, max_len, dtype, resolve_device(device))
 
+
+def cache_spec(cfg, batch_size: int, max_len: int,
+               dtype=torch.bfloat16) -> dict[str, Any]:
+    """:func:`init_cache`'s tree as ``meta`` tensors, ``len`` an int32
+    0-dim one as in the reference: the shapes and dtypes, nothing
+    allocated."""
+    c = _cache(cfg, batch_size, max_len, dtype, torch.device("meta"))
+    c["len"] = torch.empty((), dtype=torch.int32, device="meta")
+    return c
+
+
+def _cache(cfg, batch_size, max_len, dtype, device) -> dict[str, Any]:
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     c: dict[str, Any] = {"len": 0}
     # the hybrid's shared block caches K/V once per application
-    n_attn = (cfg.num_layers if cfg.family in ("dense", "moe") else
+    n_attn = (cfg.num_layers if cfg.family in ("dense", "moe", "vlm",
+                                               "audio") else
               cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
               else 0)
     if n_attn:
@@ -290,10 +312,14 @@ def _write_caches(cache, caches, rows: slice, s: int) -> None:
 
 
 def prefill(cfg, params, batch, max_len: int | None = None, *, window=None):
-    """Full-sequence forward emitting caches sized to ``max_len``."""
+    """Full-sequence forward emitting caches sized to ``max_len``; the
+    fill level counts a vlm's patch positions."""
     logits, _, caches = forward(cfg, params, batch, window=window,
                                 emit_caches=True)
-    b, s = batch["tokens"].shape
+    b = logits.shape[0]
+    s = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[1]
+    if cfg.family == "vlm":
+        s += batch["patch_embeds"].shape[1]
     cache = init_cache(cfg, b, max_len or s, dtype=cfg.cdtype,
                        device=logits.device)
     _write_caches(cache, caches, slice(None), s)
@@ -344,8 +370,10 @@ def _decode_blocks(cfg, params, cache, x, attend, active=None):
 def decode_step(cfg, params, cache, tokens, *, window=None):
     """tokens: (B, 1) -> (logits (B, 1, V) float32, cache).  The new K/V,
     SSM states and conv tails land in the cache tensors in place; ``len``
-    advances by one."""
-    require_ported(cfg)
+    advances by one.  A vlm decodes as ``dense``; audio, an encoder, has
+    no decode path and raises ``ValueError``."""
+    if cfg.family == "audio":
+        raise ValueError(f"no decode path for family {cfg.family!r}")
     clen = cache["len"]
     x = L.embed_apply(params["embed"], tokens, cfg.cdtype)
     x = _decode_blocks(cfg, params, cache, x, lambda p, h, ck, cv:
@@ -390,9 +418,9 @@ def prefill_into_slot(cfg, params, cache, batch, slot: int, *, window=None,
     whole.  Returns ``(logits (1, s, V) float32, cache)``, or the final
     normed hidden states ``(1, s, D)`` with ``return_hidden=True`` (the
     quantized-head engine applies its own head)."""
-    x, _, caches, _ = backbone(cfg, params, batch, window=window)
-    out = x if return_hidden else _logits(cfg, params, x)
-    s = x.shape[1]
+    x, _, caches, off = backbone(cfg, params, batch, window=window)
+    out = x if return_hidden else _logits(cfg, params, x, off)
+    s = x.shape[1]                       # a vlm's patch positions included
     _write_caches(cache, caches, slice(slot, slot + 1), s)
     cache["pos"][slot] = s
     return out, cache
@@ -407,8 +435,11 @@ def decode_step_slotted(cfg, params, cache, tokens, active=None, *,
     Every slot advances at its own ``cache["pos"][b]``.  ``active``: (S,)
     bool; inactive slots keep their cache rows (K/V, SSM state, conv tail)
     and ``pos`` bit for bit (their outputs are computed and discarded, so
-    a tick has one shape whatever the occupancy)."""
-    require_ported(cfg)
+    a tick has one shape whatever the occupancy).  Audio has no decode
+    path and raises ``ValueError``."""
+    if cfg.family == "audio":
+        raise ValueError(f"no slotted decode path for family "
+                         f"{cfg.family!r}")
     pos = cache["pos"]
     if active is None:
         active = torch.ones((tokens.shape[0],), dtype=torch.bool,

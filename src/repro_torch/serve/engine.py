@@ -5,11 +5,12 @@ The :class:`~repro_torch.serve.scheduler.SlotScheduler` owns placement
 (slot table, pending queue, FIFO admission, recycling, counters); this
 module implements its program: per-slot cache rows (K/V for attention
 layers, SSM state and conv tail for mamba layers), preallocated output
-buffers and batched sampling.  It serves the families the LM assembly
-ports (``dense``, ``moe``, ``ssm``, ``hybrid``); every prefill of a mamba
-layer runs the SSD scan kernel, and a ``moe`` prefill routes at the
-config's capacity factor (it may drop tokens, as the reference's does)
-while a decode tick never drops.
+buffers and batched sampling.  It serves every decoder family of the LM
+assembly (``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm``; ``audio`` is
+an encoder, served by ``models.registry.make_prefill_step``); every
+prefill of a mamba layer runs the SSD scan kernel, and a ``moe`` prefill
+routes at the config's capacity factor (it may drop tokens, as the
+reference's does) while a decode tick never drops.
 
 * **Continuous batching**: a finished sequence's slot is re-prefilled from
   the pending queue on the next tick.  The cache is a slot table
@@ -33,8 +34,11 @@ while a decode tick never drops.
 
 The engine runs on ``device`` (default ``"cuda"``; asking for the card
 without one raises).  Per-slot host state stays numpy, as in the
-reference; a request carries tokens only (the reference's ``extra``
-inputs feed the vlm frontend, which is not ported).  Greedy sampling is an argmax; temperature sampling draws from
+reference.  A request carries its prompt tokens and, as in the
+reference, ``extra`` inputs: (1, ...) rows merged into its prefill batch
+on the engine's device, a vlm's ``patch_embeds`` (1, P, D) among them (its
+P positions count against ``max_len``; the cast to the compute dtype is
+the model's).  Greedy sampling is an argmax; temperature sampling draws from
 a ``torch.Generator`` seeded with ``ServeConfig.seed`` on the engine's
 device (it cannot match JAX's PRNG).
 """
@@ -73,6 +77,7 @@ class LMRequest:
     request_id: str
     tokens: np.ndarray              # (s,) int32 prompt
     max_new: int                    # total tokens to emit (incl. the first)
+    extra: dict | None = None       # e.g. vlm patch_embeds, (1, ...) rows
 
 
 @dataclasses.dataclass
@@ -89,7 +94,6 @@ class Engine:
     def __init__(self, cfg, params, serve_cfg: ServeConfig | None = None,
                  *, obs: Observability | None = None,
                  device: str | torch.device = "cuda"):
-        T.require_ported(cfg)
         self.cfg = cfg
         self.scfg = scfg = serve_cfg or ServeConfig()
         self.device = dev = resolve_device(device)
@@ -141,22 +145,29 @@ class Engine:
     # Request API
     # ------------------------------------------------------------------
     def submit(self, tokens: np.ndarray, max_new: int, *,
-               request_id: str | None = None) -> str:
+               request_id: str | None = None,
+               extra: dict | None = None) -> str:
         """Queue one prompt for ``max_new`` generated tokens (the first is
-        sampled at prefill time).  Returns the request id; the sequence
-        prefills into a slot as soon as the scheduler places it."""
+        sampled at prefill time), with ``extra`` (1, ...) inputs for its
+        prefill (numpy arrays or tensors).  Returns the request id; the
+        sequence prefills into a slot as soon as the scheduler places
+        it."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1:
             raise ValueError(f"prompt must be 1-D, got {tokens.shape}")
         if not 1 <= max_new <= self.scfg.max_len:
             raise ValueError(f"max_new must be in [1, {self.scfg.max_len}]")
-        if tokens.shape[0] + max_new - 1 > self.scfg.max_len:
+        n_extra = 0            # vlm patch embeddings occupy cache positions
+        if extra and "patch_embeds" in extra:
+            n_extra = int(np.shape(extra["patch_embeds"])[1])
+        if tokens.shape[0] + n_extra + max_new - 1 > self.scfg.max_len:
             raise ValueError(
-                f"prompt ({tokens.shape[0]} tokens) + max_new ({max_new}) "
-                f"exceeds max_len={self.scfg.max_len}")
+                f"prompt ({tokens.shape[0]} tokens + {n_extra} patch "
+                f"positions) + max_new ({max_new}) exceeds "
+                f"max_len={self.scfg.max_len}")
         rid = request_id if request_id is not None \
             else f"r{next(self._rid_counter)}"
-        self.sched.submit(rid, LMRequest(rid, tokens, int(max_new)))
+        self.sched.submit(rid, LMRequest(rid, tokens, int(max_new), extra))
         return rid
 
     def tick(self) -> list[Completion]:
@@ -195,12 +206,21 @@ class Engine:
         """Generated tokens of a completed/cancelled request (consumes it)."""
         return self._results.pop(request_id)
 
-    def generate(self, tokens: np.ndarray, max_new: int) -> np.ndarray:
+    def generate(self, tokens: np.ndarray, max_new: int,
+                 extra: dict | None = None) -> np.ndarray:
         """Run (B, s) prompts to completion and return (B, max_new) tokens
         (continuous batching when B > max_slots; rows that hit ``eos_id``
-        early are padded with it)."""
+        early are padded with it).  ``extra``: (B, ...) arrays or tensors,
+        split into each row's (1, ...) inputs."""
         tokens = np.asarray(tokens, np.int32)
-        rids = [self.submit(row, max_new) for row in tokens]
+        rids = []
+        for i in range(tokens.shape[0]):
+            row_extra = None
+            if extra:
+                row_extra = {k: (v if isinstance(v, torch.Tensor)
+                                 else np.asarray(v))[i:i + 1]
+                             for k, v in extra.items()}
+            rids.append(self.submit(tokens[i], max_new, extra=row_extra))
         self.run()
         pad = self.scfg.eos_id if self.scfg.eos_id >= 0 else 0
         out = np.full((tokens.shape[0], max_new), pad, np.int32)
@@ -235,6 +255,9 @@ class Engine:
         # previous occupant.
         batch = {"tokens": torch.as_tensor(req.tokens[None, :],
                                            device=self.device)}
+        if req.extra:
+            batch.update({k: torch.as_tensor(v, device=self.device)
+                          for k, v in req.extra.items()})
         # lm.prefill and lm.decode end after sampling, whose copy to the
         # host waits for the device: each span holds the work it queued
         t0 = self._tracer.t()

@@ -95,6 +95,24 @@ eng = Engine(cfg, T.init(cfg, torch.Generator().manual_seed(0)),
              device="cpu")
 out = eng.generate(np.ones((3, 6), np.int32), max_new=3)
 assert out.shape == (3, 3) and eng.stats()["prefills"] == 3
+cfg = configs.reduced(configs.get("internvl2-76b"), compute_dtype="float32")
+eng = Engine(cfg, T.init(cfg, torch.Generator().manual_seed(0)),
+             ServeConfig(max_len=24, max_slots=2, quant_bits=16),
+             device="cpu")
+out = eng.generate(np.ones((3, 4), np.int32), max_new=3, extra=dict(
+    patch_embeds=np.zeros((3, cfg.num_patches, cfg.d_model), np.float32)))
+assert out.shape == (3, 3) and eng.stats()["prefills"] == 3
+from repro_torch.models import baselines, registry
+cfg = configs.reduced(configs.get("hubert-xlarge"), compute_dtype="float32")
+lg = registry.make_prefill_step(cfg)(
+    T.init(cfg, torch.Generator().manual_seed(0)),
+    dict(frames=torch.ones(1, 5, cfg.d_model)))
+assert lg.shape == (1, 5, cfg.vocab_size)
+assert registry.param_count(configs.get("nemotron-4-340b")) > 3e11
+g = torch.Generator().manual_seed(0)
+traj = baselines.rnn_run(baselines.gru_step, baselines.gru_init(g),
+                         torch.ones(4, 2, 3), torch.zeros(2, 16))
+assert traj.shape == (4, 2, 16) and baselines.mlp_param_count() == 12518
 from repro_torch.analysis import lint_tree, run_selftest
 assert lint_tree()["findings"] == [] and run_selftest()["ok"]
 y, st = ssd_scan(torch.ones(1, 5, 2, 4), torch.ones(1, 5, 2), -torch.ones(2),
@@ -149,6 +167,8 @@ def test_default_device_raises_without_a_card():
     lm_params = T.init(lm_cfg, torch.Generator().manual_seed(0))
     ssm_cfg = configs.reduced(configs.get("mamba2-780m"))
     ssm_params = T.init(ssm_cfg, torch.Generator().manual_seed(0))
+    vlm_cfg = configs.reduced(configs.get("internvl2-76b"))
+    vlm_params = T.init(vlm_cfg, torch.Generator().manual_seed(0))
     params = weights.random_params(0)
     qp = quantize_params(params, QuantConfig())
     sw = StepWeights.from_quantized(qp)
@@ -163,6 +183,7 @@ def test_default_device_raises_without_a_card():
                  lambda: Engine(lm_cfg, lm_params, device="cuda:0"),
                  lambda: T.init_cache(lm_cfg, 1, 4),
                  lambda: Engine(ssm_cfg, ssm_params),
+                 lambda: Engine(vlm_cfg, vlm_params),
                  lambda: T.init_cache(ssm_cfg, 1, 4),
                  lambda: T.init_slot_cache(ssm_cfg, 1, 4),
                  lambda: T.init_slot_cache(lm_cfg, 1, 4),

@@ -13,7 +13,9 @@ within 1e-4, the reference's bound in ``tests/test_decode_consistency.py``);
 the port's decode against its own forward (mirror of that file's
 ``test_decode_matches_forward``, ``test_prefill_then_decode_continuous``
 and ``test_sliding_window_decode_matches_windowed_forward``); an inactive
-slot kept bit for bit; the families not ported refused.  The mamba
+slot kept bit for bit; the audio family's decode refused in both
+packages.  The ``vlm`` and ``audio`` parity cases are in
+``tests/test_torch_lm_frontends.py``.  The mamba
 layers' scans run through the SSD scan kernel's entry point, its plain
 version here."""
 import dataclasses
@@ -296,19 +298,38 @@ def test_moe_prefill_drops_tokens_like_reference(arch):
     close_caches(cache, jcache)
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "hubert-xlarge"])
-def test_other_families_are_refused(arch):
-    cfg = C.reduced(C.get(arch))
-    calls = [lambda: T.init(cfg, torch.Generator().manual_seed(0)),
-             lambda: T.forward(cfg, {}, {"tokens": tk([[1]])}),
-             lambda: T.init_cache(cfg, 1, 4, device="cpu"),
-             lambda: T.init_slot_cache(cfg, 1, 4, device="cpu"),
-             lambda: T.decode_step(cfg, {}, {"len": 0}, tk([[1]])),
-             lambda: T.decode_step_slotted(cfg, {}, {"pos": tk([0])},
-                                           tk([[1]]))]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+@pytest.mark.parametrize("fn", ["decode_step", "decode_step_slotted"])
+def test_audio_has_no_decode_path(fn):
+    """The audio family is an encoder: both decode paths raise
+    ``ValueError`` in both packages.  The reference looks its embedding up
+    before it reaches its family check, so both are given a tree with an
+    embedding table beside the audio tree's leaves."""
+    over = dict(compute_dtype="float32", param_dtype="float32")
+    jcfg = JC.reduced(JC.get("hubert-xlarge"), **over)
+    cfg = C.reduced(C.get("hubert-xlarge"), **over)
+    with jax.threefry_partitionable(False):
+        jp = JT.init(jcfg, jax.random.PRNGKey(0))
+    assert "embed" not in jp
+    table = np.zeros((cfg.vocab_size, cfg.d_model), np.float32)
+    jp = dict(jp, embed={"table": jnp.asarray(table)})
+    p = weights.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.ones((2, 1), np.int32)
+    if fn == "decode_step":
+        jcache = JT.init_cache(jcfg, 2, 4, dtype=jnp.float32)
+        cache = T.init_cache(cfg, 2, 4, dtype=torch.float32, device="cpu")
+    else:
+        jcache = JT.init_slot_cache(jcfg, 2, 4, dtype=jnp.float32)
+        cache = T.init_slot_cache(cfg, 2, 4, dtype=torch.float32,
+                                  device="cpu")
+    assert cache["k"].shape == jcache["k"].shape   # the encoder's K/V cache
+    msgs = []
+    for call in (lambda: getattr(JT, fn)(jcfg, jp, jcache,
+                                         jnp.asarray(toks)),
+                 lambda: getattr(T, fn)(cfg, p, cache, tk(toks))):
+        with pytest.raises(ValueError, match="decode path for family") as e:
             call()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 def test_configs_are_the_reference_data():
