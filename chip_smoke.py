@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, window and LM paths on one CUDA
-card.
+"""Drive the PyTorch/CUDA port's serving, window, LM and training paths on
+one CUDA card.
 
     python3 chip_smoke.py [--parent TREE]
 
@@ -261,9 +261,41 @@ Phases (any failure exits non-zero; nothing is caught):
     card within 1e-3 x max|logits| of the same forward on the CPU.  This
     path reaches no kernel: the reference's head is a dense with a bias,
     outside any ``pallas_call``.
+19. LM training on the card (``train_path``). (a) Qwen2-1.5B at full
+    width and depth (28 layers, float32 dense weights and float32 Adam
+    moments, the bf16 embedding; ``cfg.remat`` on) through
+    ``train.trainer.Trainer`` and ``registry.make_train_step`` on
+    ``data.tokens.lm_batch`` at seq 4096 (the reference launcher's
+    full-size default) x batch 2 (cut from 256), TRAIN_STEPS steps, the
+    attention on the chunked path with its flash backward, one
+    checkpoint at the end (the free disk checked first): ms/step p50 and
+    max, tokens/s, the model-FLOP share (``registry.step_flops_model``
+    over the bf16 dense peak), peak memory, the checkpoint's bytes and
+    save seconds, each step's loss (fails unless every loss and
+    grad_norm is finite); a forward, a forward + backward, an optimizer
+    update (on clones) and a profiled forward + backward say where a
+    step's time goes. (b) The parameters
+    alone restored from the checkpoint onto the card from ``meta``
+    stand-ins, bitwise those the trainer saved (the bf16 embedding
+    included), the trainer freed, then served through
+    ``Engine(quant_bits=16)``: 8 requests over 8 slots, K5 launches =
+    prefills + decode ticks, every head output within 1e-5 x max|plain|.
+    (c) Qwen2-1.5B's width at 2 of 28 layers, seq 512 x 2, 6 steps with
+    checkpoints every 2 and a fault before step 5: the history replays
+    step 4 after one restart, and every loss and grad_norm is bitwise
+    the uninterrupted run's under ``torch.use_deterministic_algorithms``,
+    in a process of its own that sets ``CUBLAS_WORKSPACE_CONFIG`` (set
+    for the whole script, it slows phase 15's eager step).  (d)
+    mamba2-780m at full width, 4 of 48 layers, 1024 tokens: a finite
+    loss, finite and nonzero gradients of every layer's ``A_log``,
+    ``dt_bias``, ``D`` and input projections, K6 launched 0 times (the
+    training scan is ``mamba2.ssd_chunked``); then each of the six
+    kernel wrappers, and ``ops.ssd_scan``, refuses a requires-grad CUDA
+    input under grad mode.
 
-The last lines are the ``{"kernels": [...]}`` record, the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+Then the script's wall time.  The last lines are the ``{"kernels":
+[...]}`` record, the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -372,6 +404,22 @@ AUDIO_FRAMES = 1_000      # 20 s at HuBERT's 50 frames/s
 AUDIO_CALLS = 5           # timed prefill calls
 AUDIO_F32_FRAMES = 128    # the float32 card-vs-CPU clip
 AUDIO_REL = 1e-3          # ... held to this x max|logits|
+TRAIN_ARCH = "qwen2-1.5b"  # phase 19's model, at full width and depth
+TRAIN_SEQ = 4_096         # the reference launcher's full-size default
+TRAIN_BATCH = 2           # cut from the launcher's 256 (PERF.md section 4)
+TRAIN_STEPS = 4           # one checkpoint, at the end
+TRAIN_REQUESTS = 8        # requests served from the trained checkpoint
+TRAIN_CKPT_DIR = os.path.join(SRC, "repro_torch", "_build", "chip_smoke_ckpt")
+RESUME_LAYERS = 2         # phase 19 (c): Qwen2-1.5B width, cut in depth
+RESUME_SEQ = 512
+RESUME_BATCH = 2
+RESUME_STEPS = 6
+RESUME_EVERY = 2          # checkpoints at steps 2, 4 and 6 ...
+RESUME_FAULT = 5          # ... and a fault before step 5: step 4 replays
+RESUME_TIMEOUT_S = 600
+DETERMINISTIC_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG of phase 19 (c)
+SSM_TRAIN_LAYERS = 4      # phase 19 (d): mamba2-780m, 4 of 48 layers
+SSM_TRAIN_SEQ = 1_024
 
 
 def fail(msg: str) -> None:
@@ -3476,6 +3524,497 @@ def audio_path(torch, np, dev, card) -> None:
     print(f"audio path (phase 18 b) wall {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: LM training on the card, then serving what was trained
+# ---------------------------------------------------------------------------
+
+def same_bits(torch, a, b) -> bool:
+    """Equal shape, dtype and bit patterns (NaN payloads and signed zeros
+    included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    iv = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+          8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(iv), b.view(iv))
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def fresh_ckpt_dir(need: int, label: str) -> str:
+    """An empty TRAIN_CKPT_DIR, after checking that its disk holds
+    ``need`` bytes with a tenth to spare (fails loudly otherwise)."""
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_CKPT_DIR)
+    free = shutil.disk_usage(TRAIN_CKPT_DIR).free
+    if free < 1.1 * need:
+        fail(f"{label}: {free:,} B free under {TRAIN_CKPT_DIR}, the "
+             f"checkpoints need {need:,} B and a tenth to spare")
+    return TRAIN_CKPT_DIR
+
+
+def token_batches(torch, dev, cfg, seq: int, batch: int):
+    """``data.tokens.lm_batch`` at ``seq`` x ``batch``, on the card."""
+    from repro_torch.data import tokens
+    tcfg = tokens.TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch, seed=SEED)
+    return lambda s: {k: torch.from_numpy(v).to(dev)
+                      for k, v in tokens.lm_batch(tcfg, s).items()}
+
+
+def trainer_for(torch, dev, cfg, acfg, *, steps: int, every: int, seq: int,
+                batch: int, ckpt_dir: str, fault_hook=None):
+    """``Trainer`` over ``registry.make_train_step`` and the token stream,
+    weights from ``registry.init`` with a CUDA generator seeded SEED."""
+    from repro_torch.models import registry
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    return Trainer(
+        TrainerConfig(total_steps=steps, checkpoint_every=every,
+                      checkpoint_dir=ckpt_dir, keep_last=1, adam=acfg),
+        init_params_fn=lambda: registry.init(
+            cfg, torch.Generator(device=dev).manual_seed(SEED)),
+        step_fn=registry.make_train_step(cfg, acfg),
+        batch_fn=token_batches(torch, dev, cfg, seq, batch),
+        fault_hook=fault_hook)
+
+
+def train_full(torch, np, dev, card):
+    """Phase 19 (a): Qwen2-1.5B at full width and depth trained
+    TRAIN_STEPS steps at TRAIN_SEQ x TRAIN_BATCH through ``Trainer``,
+    checkpointed at the end.  Returns {"cfg", "params" (the trained
+    ones), "ckpt_dir"}."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import AdamConfig
+
+    cfg = configs.get(TRAIN_ARCH)
+    acfg = AdamConfig(state_dtype=cfg.opt_state_dtype)
+    state_b = tree_bytes(registry.abstract_params(cfg)) + tree_bytes(
+        registry.abstract_opt(cfg, acfg))
+    ckpt_dir = fresh_ckpt_dir(state_b, "train path")
+    tr = trainer_for(torch, dev, cfg, acfg, steps=TRAIN_STEPS,
+                     every=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                     ckpt_dir=ckpt_dir)
+    saves = []
+    save = tr._save
+
+    def timed_save(state, step):
+        t0 = time.perf_counter()
+        save(state, step)
+        saves.append(time.perf_counter() - t0)
+    tr._save = timed_save
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = tr.run()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = [h for h in hist if "step" in h]
+    if [h["step"] for h in steps] != list(range(TRAIN_STEPS)) or \
+            tr.restarts:
+        fail(f"train path: history {hist}")
+    for h in steps:
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            fail(f"train path: step {h['step']}: loss {h['loss']!r}, "
+                 f"grad_norm {h['grad_norm']!r}")
+    times = [h["time_s"] for h in steps]
+    p50 = float(np.median(times))
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = registry.step_flops_model(cfg, ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    path = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}")
+    size = dir_bytes(path)
+    print(f"train path: {TRAIN_ARCH} at full width and depth "
+          f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, tied; float32 dense weights and "
+          f"float32 Adam moments, a bfloat16 embedding; remat "
+          f"{cfg.remat}) through Trainer + registry.make_train_step on "
+          f"data.tokens.lm_batch at seq {TRAIN_SEQ} x batch {TRAIN_BATCH} "
+          f"(cut from the launcher's 256), {TRAIN_STEPS} steps, the "
+          f"attention on the chunked path with its flash backward")
+    print(f"train path: ms/step p50 {p50 * 1e3:.3f} max "
+          f"{max(times) * 1e3:.3f} (steps "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times)} ms, host clock to "
+          f"a synchronize); {tokens / p50:,.1f} tokens/s; model FLOPs "
+          f"(registry.step_flops_model, 6 N D) {flops:.4e} a step = "
+          f"{flops / p50 / 1e12:.1f} TFLOP/s = "
+          f"{100 * flops / p50 / BF16_FLOP_PER_S:.2f} % of the bf16 dense "
+          f"peak; peak device memory {peak:,} B ({peak / 2**30:.2f} GiB); "
+          f"wall {wall:.1f} s; card {card}")
+    print(f"train path: losses " + ", ".join(
+        f"{h['loss']!r}" for h in steps) + "; grad_norm " + ", ".join(
+        f"{h['grad_norm']:.4f}" for h in steps) + "; all finite")
+    print(f"train path: checkpoint at step {TRAIN_STEPS}: {size:,} B "
+          f"({size / 2**30:.2f} GiB: parameters and Adam state) saved in "
+          f"{saves[-1]:.1f} s ({size / saves[-1] / 1e9:.2f} GB/s)")
+    train_breakdown(torch, np, cfg, acfg, tr.state, tr.batch_fn(0), p50)
+    run = {"cfg": cfg, "params": tr.state["params"], "ckpt_dir": ckpt_dir}
+    del tr, hist
+    return run
+
+
+def train_breakdown(torch, np, cfg, acfg, state, batch,
+                    step_s: float) -> None:
+    """Where a training step's time goes: the loss's forward alone (no
+    grad), then forward + backward (``torch.autograd.grad`` of
+    ``train_loss``, nothing updated), then one ``optimizer.update`` of
+    clones of the parameters and moments with those gradients, each
+    timed to a synchronize; one forward + backward under torch.profiler:
+    the device's busy share, its time by kind of kernel and the largest
+    kernels."""
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train import optimizer
+    params = state["params"]
+
+    def fwd_bwd():
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = T.train_loss(cfg, live, batch)
+        return torch.autograd.grad(loss, list(tree_leaves(live)))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        T.train_loss(cfg, params, batch)
+    torch.cuda.synchronize()
+    fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = fwd_bwd()
+    torch.cuda.synchronize()
+    both = time.perf_counter() - t0
+    grads = iter(grads)
+    grads = tree_map(lambda _: next(grads), params)
+    clones = tree_map(torch.clone, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    optimizer.update(clones["params"], grads, clones["opt"], acfg)
+    torch.cuda.synchronize()
+    adam = time.perf_counter() - t0
+    del grads, clones
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads = fwd_bwd()
+        torch.cuda.synchronize()
+    del grads
+    ev = device_events(prof)
+    if not ev:
+        fail("train breakdown: the profiler recorded no device event")
+    lo = min(e.time_range.start for e in ev)
+    hi = max(e.time_range.end for e in ev)
+    busy = busy_us(ev)
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    kinds = {}
+    for n, us in by_name.items():
+        kind = ("matmul" if "gemm" in n.lower() else
+                "elementwise" if "elementwise" in n else
+                "reduction" if "reduce" in n.lower() else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us
+    print(f"train breakdown: forward alone (no grad) {fwd * 1e3:.3f} ms, "
+          f"forward + backward {both * 1e3:.3f} ms, one optimizer.update "
+          f"{adam * 1e3:.3f} ms (the step's p50 {step_s * 1e3:.3f} ms); a "
+          f"profiled forward + backward: {len(ev):,} device events over "
+          f"{(hi - lo) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms "
+          f"({100 * busy / (hi - lo):.2f} %, idle "
+          f"{100 - 100 * busy / (hi - lo):.2f} %); device time by kind: "
+          + ", ".join(f"{k} {us / 1e3:.3f} ms" for k, us in sorted(
+              kinds.items(), key=lambda kv: -kv[1]))
+          + "; largest kernels: "
+          + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top))
+
+
+def serve_trained(torch, np, dev, card, run: dict) -> dict:
+    """Phase 19 (b): the checkpoint's parameters restored alone onto the
+    card from ``meta`` stand-ins, bitwise those the trainer saved, the
+    trainer freed, then served through ``Engine(quant_bits=16)`` (K5 at
+    its head, every call checked, as in phase 12)."""
+    from repro_torch.models import registry
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg, trained = run["cfg"], run.pop("params")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ckpt.restore(run["ckpt_dir"], TRAIN_STEPS,
+                            {"params": registry.abstract_params(cfg)},
+                            device=dev)["params"]
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    leaves, ref = list(tree_leaves(restored)), list(tree_leaves(trained))
+    bad = [i for i, (a, b) in enumerate(zip(leaves, ref))
+           if not same_bits(torch, a, b)]
+    if bad or len(leaves) != len(ref):
+        fail(f"train path: {len(bad)} restored leaves differ from the "
+             "trained ones")
+    table = restored["embed"]["table"]
+    if table.dtype != torch.bfloat16:
+        fail(f"train path: restored embedding {table.dtype}")
+    pbytes = tree_bytes(restored)
+    print(f"train path: parameters restored alone from meta stand-ins in "
+          f"{restore_s:.1f} s ({pbytes:,} B, {pbytes / restore_s / 1e9:.2f} "
+          f"GB/s): all {len(leaves)} leaves bitwise those the trainer "
+          f"saved, the bfloat16 embedding {tuple(table.shape)} included")
+    del trained, leaves, ref
+    gc.collect()        # the trainer's optimizer state and gradients
+    torch.cuda.empty_cache()
+    reqs = lm_requests(np, cfg.vocab_size, TRAIN_REQUESTS, LM_PROMPT, LM_NEW)
+    out = serve_lm(torch, np, dev, card, cfg, restored,
+                   slots=LM_SLOTS, max_len=LM_MAX_LEN, reqs=reqs,
+                   label="train path serve (trained checkpoint)")
+    del out["eng"], restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"k5": out["k5"], "k5_err": out["k5_err"]}
+
+
+def train_resume_apart() -> None:
+    """Phase 19 (c) in a process of its own, the only one that sets
+    CUBLAS_WORKSPACE_CONFIG: deterministic cuBLAS needs it before cuBLAS
+    starts, and set for the whole script it slows phase 15's eager step
+    (``tools/cublas_workspace_ab.py``)."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=DETERMINISTIC_CUBLAS)
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.train_resume_main())"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=RESUME_TIMEOUT_S)
+    sys.stdout.write(out.stdout)
+    sys.stderr.write(out.stderr)
+    if out.returncode != 0:
+        fail(f"resume: its process exited {out.returncode}")
+
+
+def train_resume_main() -> int:
+    """Entry point of :func:`train_resume_apart`'s process."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_resume(torch, np, torch.device("cuda", 0))
+    return 0
+
+
+def train_resume(torch, np, dev) -> None:
+    """Phase 19 (c): Qwen2-1.5B's width at RESUME_LAYERS layers, a fault at
+    step RESUME_FAULT with checkpoints every RESUME_EVERY steps: the
+    history replays from the last checkpoint, and every loss and
+    grad_norm (the replayed ones too) is bitwise the uninterrupted run's,
+    under ``torch.use_deterministic_algorithms(True)``."""
+    import dataclasses
+    import warnings
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import AdamConfig
+
+    full = configs.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=RESUME_LAYERS)
+    acfg = AdamConfig(state_dtype=cfg.opt_state_dtype)
+    state_b = tree_bytes(registry.abstract_params(cfg)) + tree_bytes(
+        registry.abstract_opt(cfg, acfg))
+    t0 = time.perf_counter()
+    fired = []
+
+    def fault(step):
+        if step == RESUME_FAULT and not fired:
+            fired.append(step)
+            raise RuntimeError("simulated node failure")
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, every, hook in (("clean", RESUME_STEPS, None),
+                                      ("fault", RESUME_EVERY, fault)):
+                d = os.path.join(fresh_ckpt_dir(2 * state_b, "resume"), name)
+                tr = trainer_for(torch, dev, cfg, acfg, steps=RESUME_STEPS,
+                                 every=every, seq=RESUME_SEQ,
+                                 batch=RESUME_BATCH, ckpt_dir=d,
+                                 fault_hook=hook)
+                runs[name] = (tr.run(), tr.restarts)
+                del tr
+                gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    clean, _ = runs["clean"]
+    hist, restarts = runs["fault"]
+    steps = [h["step"] for h in hist if "step" in h]
+    last_ckpt = (RESUME_FAULT // RESUME_EVERY) * RESUME_EVERY
+    want = list(range(RESUME_FAULT)) + list(range(last_ckpt, RESUME_STEPS))
+    if steps != want or restarts != 1 or \
+            [h.get("event") for h in hist].count("restart") != 1:
+        fail(f"resume: steps {steps}, restarts {restarts}; want {want} and "
+             "one restart")
+    by_step = {h["step"]: h for h in clean}
+    diffs = [abs(h[k] - by_step[h["step"]][k]) for h in hist if "step" in h
+             for k in ("loss", "grad_norm")]
+    same = all(h[k] == by_step[h["step"]][k] for h in hist if "step" in h
+               for k in ("loss", "grad_norm"))
+    if not same:
+        fail(f"resume: losses or grad norms differ from the uninterrupted "
+             f"run's by up to {max(diffs):.3e}; ops without a "
+             f"deterministic implementation: {nondet or 'none reported'}")
+    print(f"resume: {TRAIN_ARCH} width, {RESUME_LAYERS} of {full.num_layers} "
+          f"layers, seq {RESUME_SEQ} x batch {RESUME_BATCH}, "
+          f"{RESUME_STEPS} steps, checkpoint_every {RESUME_EVERY}, a fault "
+          f"at step {RESUME_FAULT}: history steps {steps} with one restart "
+          f"(the reference's test_trainer_fault_restart_resumes_exactly "
+          f"shape); every loss and grad_norm, the replayed step "
+          f"{last_ckpt} too, bitwise the uninterrupted run's under "
+          f"torch.use_deterministic_algorithms(True) (CUBLAS_WORKSPACE_CONFIG "
+          f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}); ops without a "
+          f"deterministic implementation: {nondet or 'none'}; losses "
+          + ", ".join(f"{h['loss']!r}" for h in clean)
+          + f"; wall {time.perf_counter() - t0:.1f} s")
+
+
+def guard_cases(torch, dev) -> dict:
+    """(wrapper, inputs) of each kernel wrapper on the card, tiny sizes."""
+    from repro_torch import weights
+    from repro_torch.kernels.fastgrnn_cell.kernel import WindowScan
+    from repro_torch.kernels.lut_act.kernel import LUTAct
+    from repro_torch.kernels.q15_matmul.kernel import Q15Matmul
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    f32 = dict(dtype=torch.float32, device=dev)
+    h, x = torch.zeros(4, 16, **f32), torch.ones(4, 3, **f32)
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    return {
+        "q15_step": (k1_step(dev), (h, x, mask), {}),
+        "q15_step_dense": (k2_step(dev), (h, x, mask), {}),
+        "fastgrnn_window": (WindowScan(weights.random_params(SEED), dev),
+                            (torch.ones(6, 2, 3, **f32),), {}),
+        "lut_act": (LUTAct(), (torch.linspace(-9, 9, 50, **f32),
+                               "sigmoid"), {}),
+        "q15_matmul": (Q15Matmul(), (torch.ones(2, 5, **f32), torch.ones(
+            5, 6, dtype=torch.int16, device=dev), torch.tensor(0.5, **f32)),
+            {}),
+        "ssd_scan": (SSDScan(), (torch.ones(2, 5, 4, **f32),
+                                 torch.ones(2, 5, 1, **f32),
+                                 -torch.ones(2, 1, **f32),
+                                 torch.ones(2, 5, 3, **f32),
+                                 torch.ones(2, 5, 3, **f32)), {"chunk": 2}),
+    }
+
+
+def train_ssm(torch, np, dev, card) -> None:
+    """Phase 19 (d): mamba2-780m at full width, SSM_TRAIN_LAYERS layers,
+    one train step at SSM_TRAIN_SEQ x 1: finite loss, finite and nonzero
+    gradients of every layer's A_log, dt_bias, D and input projections,
+    no K6 launch; then every kernel wrapper refuses a requires-grad CUDA
+    input under grad mode (K6's through ``ops.ssd_scan``)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train import optimizer
+    from repro_torch.train.optimizer import AdamConfig
+
+    full = configs.get(SSM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=SSM_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    batch = token_batches(torch, dev, cfg, SSM_TRAIN_SEQ, 1)(0)
+    SSDScan.launches = 0
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = T.train_loss(cfg, live, batch)
+    grads = iter(torch.autograd.grad(loss, list(tree_leaves(live))))
+    grads = tree_map(lambda _: next(grads), live)
+    del live
+    loss = loss.detach()
+    acfg = AdamConfig(state_dtype=cfg.opt_state_dtype)
+    _, _, met = registry.make_train_step(cfg, acfg)(
+        params, optimizer.init(params, acfg), batch)
+    torch.cuda.synchronize()
+    if SSDScan.launches:
+        fail(f"SSM train: K6 launched {SSDScan.launches} times in training")
+    if not (torch.isfinite(loss) and torch.isfinite(met["loss"])):
+        fail(f"SSM train: loss {float(loss)!r}, train step's "
+             f"{float(met['loss'])!r}")
+    names = ("A_log", "dt_bias", "D", "z_proj", "x_proj", "B_proj",
+             "C_proj", "dt_proj")
+    smallest = {}
+    for n in names:
+        g = grads["blocks"]["mamba"][n]
+        g = g["w"] if isinstance(g, dict) else g
+        per_layer = g.reshape(cfg.num_layers, -1)
+        if not bool(torch.isfinite(per_layer).all()):
+            fail(f"SSM train: {n} has a non-finite gradient")
+        mags = per_layer.abs().sum(1)
+        if not bool((mags > 0).all()):
+            fail(f"SSM train: {n}'s gradient is zero in layer "
+                 f"{int((mags == 0).nonzero()[0])}")
+        smallest[n] = float(mags.min())
+    refused = []
+    for name, (call, args, kw) in guard_cases(torch, dev).items():
+        live = list(args)
+        live[0] = args[0].clone().requires_grad_()
+        try:
+            call(*live, **kw)
+        except RuntimeError as e:
+            if "requires grad" not in str(e):
+                raise
+            refused.append(name)
+        else:
+            fail(f"guard: {name} took a requires-grad CUDA input under grad "
+                 "mode")
+    x = torch.ones(1, 64, 4, 8, device=dev, requires_grad=True)
+    try:
+        ssd_ops.ssd_scan(x, torch.ones(1, 64, 4, device=dev),
+                         -torch.ones(4, device=dev),
+                         torch.ones(1, 64, 1, 16, device=dev),
+                         torch.ones(1, 64, 1, 16, device=dev), chunk=32)
+    except RuntimeError as e:
+        if "ssd_scan: an input requires grad" not in str(e):
+            raise
+    else:
+        fail("guard: ops.ssd_scan took a requires-grad CUDA input")
+    print(f"SSM train: {SSM_ARCH} at full width, {SSM_TRAIN_LAYERS} of "
+          f"{full.num_layers} layers, seq {SSM_TRAIN_SEQ} x 1: loss "
+          f"{float(loss)!r} (make_train_step's {float(met['loss'])!r}), "
+          f"scans by mamba2.ssd_chunked (K6 launched 0 times); every "
+          f"layer's gradient finite and nonzero, smallest per-layer "
+          f"sum |g|: " + ", ".join(f"{n} {v:.3e}"
+                                    for n, v in smallest.items())
+          + f"; wall {time.perf_counter() - t0:.1f} s")
+    print(f"guard: a requires-grad CUDA input under grad mode is refused by "
+          f"every kernel wrapper ({', '.join(refused)}) and by "
+          f"ops.ssd_scan, before any launch")
+
+
+def train_path(torch, np, dev, card) -> dict:
+    """Phase 19: (a) train, (b) serve the checkpoint, (c) fault and exact
+    resume, (d) the SSM family's gradients and the kernel guard."""
+    t0 = time.perf_counter()
+    served = serve_trained(torch, np, dev, card,
+                           train_full(torch, np, dev, card))
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    train_resume_apart()
+    train_ssm(torch, np, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train path (phase 19) wall {time.perf_counter() - t0:.1f} s")
+    return served
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's paths on one "
@@ -3488,6 +4027,7 @@ def parse_args(argv=None):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     args = parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3550,6 +4090,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     vlm_path(torch, np, dev, card)
     audio_path(torch, np, dev, card)
+    train_path(torch, np, dev, card)
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s, the "
+          f"kernels' build included")
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"
     rows = [("q15_step", f"{src}:119", launches, max_err),
             ("q15_step_dense", f"{src}:146", k2["launches"], dense_err),

@@ -1,1 +1,2 @@
-"""Numpy-only data pipelines (synthetic HAPT windows)."""
+"""Numpy-only data pipelines: synthetic HAPT windows (``hapt``) and the
+seekable LM token stream (``tokens``)."""

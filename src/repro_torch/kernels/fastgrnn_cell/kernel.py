@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.kernels.guard import refuse_grad
 from . import qstep
 
 KERNEL = "q15_step"
@@ -208,6 +209,7 @@ class FastGRNNStep:
 
     def __call__(self, h: torch.Tensor, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
+        refuse_grad(KERNEL, h, x, mask)
         _check(self, h, x, mask)
         if h.device.type == "cpu":
             return self.plain(h, x, mask)
@@ -269,6 +271,7 @@ class DenseStep:
 
     def __call__(self, h: torch.Tensor, x: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
+        refuse_grad(DENSE_KERNEL, h, x, mask)
         _check(self, h, x, mask)
         if h.device.type == "cpu":
             return self.plain(h, x, mask)
@@ -330,6 +333,7 @@ class WindowScan:
             self.hidden_dim, self.input_dim, traj.data_ptr(), h.data_ptr()))
 
     def __call__(self, xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        refuse_grad(WINDOW_KERNEL, xs)
         if xs.device != self.device:
             raise ValueError(f"xs is on {xs.device}, scan built for "
                              f"{self.device}")

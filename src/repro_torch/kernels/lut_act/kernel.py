@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import lut
 from repro_torch.kernels import _build
+from repro_torch.kernels.guard import refuse_grad
 
 KERNEL = "lut_act"
 
@@ -72,6 +73,7 @@ class LUTAct:
     def __call__(self, x: torch.Tensor, fn: str, *, mode: str = "nearest",
                  lo: float = lut.INPUT_MIN, hi: float = lut.INPUT_MAX
                  ) -> torch.Tensor:
+        refuse_grad(KERNEL, x)
         if x.dtype not in _DTYPES:
             raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
         if mode not in lut.MODES:

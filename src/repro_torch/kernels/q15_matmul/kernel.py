@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.guard import refuse_grad
 
 KERNEL = "q15_matmul"
 
@@ -70,6 +71,7 @@ class Q15Matmul:
     def __call__(self, x: torch.Tensor, wq: torch.Tensor,
                  scale: torch.Tensor, *,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        refuse_grad(KERNEL, x, wq, scale)
         if x.dtype != torch.float32 or x.ndim != 2:
             raise TypeError(f"x must be (M, K) float32, got {x.dtype} "
                             f"{tuple(x.shape)}")

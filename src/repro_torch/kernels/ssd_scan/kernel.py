@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.guard import refuse_grad
 
 KERNEL = "ssd_scan"
 
@@ -126,6 +127,7 @@ class SSDScan:
     def __call__(self, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, *, chunk: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        refuse_grad(KERNEL, x, dt, A, B, C)
         if x.dtype not in _DTYPES or x.ndim != 3:
             raise TypeError(f"x must be (BH, S, P) float32 or bfloat16, got "
                             f"{x.dtype} {tuple(x.shape)}")

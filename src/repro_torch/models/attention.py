@@ -6,11 +6,12 @@ The attention math is plain torch, written op for op like the reference
 (the reference computes it outside any Pallas kernel, so it is no kernel
 of the port): scores in float32, ``-1e30`` masks, float32 softmax, and the
 flash-style online softmax of ``chunked_attention`` for prompts of
-``CHUNKED_THRESHOLD`` tokens or more.  The decode functions write the new
-token's K/V into the cache tensors they are given, in place, and return
-them; a row that is not active keeps its cache bit for bit.  Sequence-
-sharded flash decoding and the flash backward belong with training and
-``launch/`` and are not here.
+``CHUNKED_THRESHOLD`` tokens or more, with the reference's FlashAttention-2
+backward (a ``torch.autograd.Function`` in place of its ``custom_vjp``).
+The decode functions write the new token's K/V into the cache tensors
+they are given, in place, and return them; a row that is not active keeps
+its cache bit for bit.  Sequence-sharded flash decoding belongs with the
+distributed half of ROADMAP A10 and is not here.
 """
 from __future__ import annotations
 
@@ -50,12 +51,9 @@ def _repeat_kv(k, n_rep: int):
         b, s, kv * n_rep, hd)
 
 
-def chunked_attention(q, k, v, causal: bool = True,
-                      window: int | None = None, q_chunk: int = 512,
-                      k_chunk: int = 1024):
-    """Flash-style attention, forward only: online softmax over KV chunks,
-    never materializing the (Sq, Sk) score matrix.
-    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) -> (B, Sq, H, hd)."""
+def _flash_fwd(q, k, v, causal, window, q_chunk, k_chunk):
+    """The online-softmax forward: -> (out (B, Sq, H, hd) in q's dtype,
+    lse (B, H, Sq) float32, each row's log-sum-exp of its scores)."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     qc, kc = min(q_chunk, sq), min(k_chunk, sk)
@@ -68,7 +66,7 @@ def chunked_attention(q, k, v, causal: bool = True,
     nq, nk = (sq + qpad) // qc, (sk + kpad) // kc
     scale = hd ** -0.5
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qx = q[:, qi * qc:(qi + 1) * qc]
         m = torch.full((b, h, qc), -torch.inf, dtype=torch.float32,
@@ -81,13 +79,7 @@ def chunked_attention(q, k, v, causal: bool = True,
             vx = v[:, kj * kc:(kj + 1) * kc]
             s = torch.einsum("bqhd,bkhd->bhqk", qx.float(),
                              kx.float()) * scale
-            kpos = kj * kc + torch.arange(kc, device=dev)[None, :]
-            msk = kpos < sk
-            if causal:
-                msk = msk & (kpos <= qpos)
-            if window is not None:
-                msk = msk & (kpos > qpos - window)
-            s = s + torch.where(msk, 0.0, NEG)[None, None]
+            s = s + _bias(qpos, kj * kc, kc, sk, causal, window)[None, None]
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -97,7 +89,86 @@ def chunked_attention(q, k, v, causal: bool = True,
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.movedim(1, 2))                  # (b, qc, h, hd)
-    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+    return out, torch.cat(lses, dim=2)[..., :sq]
+
+
+def _bias(qpos, k0: int, kc: int, sk: int, causal: bool, window):
+    """The (q, kc) additive mask of the key chunk starting at ``k0``: 0
+    where a query may attend, ``NEG`` past the keys, in the future
+    (causal) or outside the window."""
+    kpos = k0 + torch.arange(kc, device=qpos.device)[None, :]
+    msk = kpos < sk
+    if causal:
+        msk = msk & (kpos <= qpos)
+    if window is not None:
+        msk = msk & (kpos > qpos - window)
+    return torch.where(msk, 0.0, NEG)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, k_chunk):
+    """The FlashAttention-2 backward of the reference's ``_flash_bwd``:
+    one loop over the key chunks, each recomputing its full-Q score block
+    (Sq x kc) from (q, lse); dq accumulates over the chunks in float32."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    kc = min(k_chunk, sk)
+    kpad = (-sk) % kc
+    if kpad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, kpad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, kpad))
+    nk = (sk + kpad) // kc
+    scale = hd ** -0.5
+    qf, doutf = q.float(), dout.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", doutf, out.float())
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    dq = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for kj in range(nk):
+        kx = k[:, kj * kc:(kj + 1) * kc].float()
+        vx = v[:, kj * kc:(kj + 1) * kc].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kx) * scale
+        s = s + _bias(qpos, kj * kc, kc, sk, causal, window)[None, None]
+        p = torch.exp(s - lse[..., None])           # masked: exp(-1e30) = 0
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, doutf))
+        dp = torch.einsum("bqhd,bkhd->bhqk", doutf, vx)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kx)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf))
+    dk = torch.cat(dks, dim=1)[:, :sk]
+    dv = torch.cat(dvs, dim=1)[:, :sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``chunked_attention`` with the reference's ``custom_vjp``: the
+    forward saves (q, k, v, out, lse) and nothing per chunk; the backward
+    recomputes each score block (:func:`_flash_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, k_chunk):
+        out, lse = _flash_fwd(q, k, v, causal, window, q_chunk, k_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, k_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, window, k_chunk = ctx.mask
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, dout, causal, window,
+                                k_chunk)
+        return dq, dk, dv, None, None, None, None
+
+
+def chunked_attention(q, k, v, causal: bool = True,
+                      window: int | None = None, q_chunk: int = 512,
+                      k_chunk: int = 1024):
+    """Flash-style attention: online softmax over KV chunks, never
+    materializing the (Sq, Sk) score matrix, in the forward or (through
+    :class:`_FlashAttention`) the backward.
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) -> (B, Sq, H, hd)."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_chunk, k_chunk)
 
 
 def attention_scores(q, k, v, *, causal: bool, window: int | None = None,

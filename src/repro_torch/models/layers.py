@@ -193,3 +193,21 @@ def unembed_apply(p, x, compute_dtype=torch.bfloat16):
     accumulated and returned in float32."""
     return torch.matmul(x.to(compute_dtype).float(),
                         p["table"].to(compute_dtype).float().T)
+
+
+def cross_entropy(logits, labels, z_loss: float = 1e-4):
+    """Mean cross-entropy with the optional z-loss ``z_loss * lse^2``;
+    logits (..., V) (taken in float32), labels (...) integer.
+
+    The reference picks each label's logit with a one-hot product and
+    sum, a layout choice for its vocab-sharded compiler; every other term
+    of that sum is an exact zero, so a ``gather`` gives the same value
+    for finite logits without the (..., V) float32 one-hot, which at
+    Qwen2-1.5B's vocab and 8,192 tokens would be 5 GB."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss.mean()

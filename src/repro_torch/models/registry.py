@@ -7,6 +7,9 @@
   * ``make_prefill_step(cfg, shape)``  — (params, batch) -> logits for an
                                          encoder, (logits, cache) otherwise
   * ``make_decode_step(cfg, shape)``   — (params, cache, tokens) -> ...
+  * ``abstract_opt(cfg, acfg)``        — the optimizer state's stand-ins
+  * ``make_train_step(cfg, acfg)``     — (params, opt, batch) ->
+                                         (params, opt, metrics)
   * ``param_count`` / ``active_param_count`` / ``step_flops_model``
 
 A stand-in is a ``meta`` tensor: its ``shape`` and ``dtype`` are the
@@ -15,9 +18,9 @@ configs (``nemotron-4-340b`` included) are counted without allocating.
 ``long_*`` decode shapes pass ``window=cfg.sliding_window`` to the hybrid
 family, as in the reference.
 
-The training half (``abstract_opt``, ``make_train_step``), meshes,
-sequence parallelism and split-KV decoding belong with ``train/`` and
-``launch/`` (ROADMAP A10) and raise ``NotImplementedError``.
+Meshes, sequence parallelism and split-KV decoding belong with the
+distributed half of ROADMAP A10 and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,19 +30,19 @@ import torch
 
 from repro_torch.compress.tree import dequantize_tree
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.pytree import tree_map
+from repro_torch.device import MULTI_DEVICE
+from repro_torch.pytree import tree_leaves, tree_map
+from repro_torch.train import optimizer as opt_mod
 from . import layers as L
 from . import transformer as T
-
-_A10 = ("belongs with train/ and launch/ (ROADMAP A10), which are not "
-        "ported yet")
 
 
 def _no_mesh(mesh=None, seq_parallel: bool = False,
              splitkv: bool = False) -> None:
     if mesh is not None or seq_parallel or splitkv:
         raise NotImplementedError(
-            f"meshes, sequence parallelism and split-KV decoding: {_A10}")
+            f"meshes, sequence parallelism and split-KV decoding "
+            f"{MULTI_DEVICE}")
 
 
 def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
@@ -57,13 +60,35 @@ def abstract_params(cfg: ModelConfig):
     return T.init(cfg, L.SHAPE_ONLY)
 
 
-def abstract_opt(cfg: ModelConfig, acfg=None):
-    raise NotImplementedError(f"abstract_opt: the optimizer {_A10}")
+def abstract_opt(cfg: ModelConfig, acfg: opt_mod.AdamConfig):
+    """``optimizer.init``'s state for ``init``'s tree as ``meta``
+    tensors: the moments in ``acfg.state_dtype``, an int32 step."""
+    return opt_mod.init(abstract_params(cfg), acfg)
 
 
-def make_train_step(cfg: ModelConfig, acfg=None, mesh=None,
+def make_train_step(cfg: ModelConfig, acfg: opt_mod.AdamConfig, mesh=None,
                     seq_parallel: bool = False):
-    raise NotImplementedError(f"make_train_step: LM training {_A10}")
+    """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the gradient of ``transformer.train_loss`` and one
+    ``optimizer.update``, which writes the given parameters and state in
+    place (the reference's jitted step donates both).  ``metrics``: the
+    loss and the loss's own metrics, ``grad_norm`` and ``lr``, as 0-dim
+    tensors on the parameters' device."""
+    _no_mesh(mesh, seq_parallel)
+
+    def train_step(params, opt_state, batch):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, metrics = T.train_loss(cfg, live, batch)
+        leaves = list(tree_leaves(live))
+        grads = iter(torch.autograd.grad(loss, leaves))
+        grads = tree_map(lambda _: next(grads), live)
+        del live, leaves
+        params, opt_state, om = opt_mod.update(params, grads, opt_state,
+                                               acfg)
+        return params, opt_state, {"loss": loss.detach(),
+                                   **{k: v.detach()
+                                      for k, v in metrics.items()}, **om}
+    return train_step
 
 
 def _window_for(cfg: ModelConfig, shape: ShapeConfig):

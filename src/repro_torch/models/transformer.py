@@ -15,10 +15,15 @@ of the reference:
 
 Parameters are a nested dict of tensors; the per-layer parameters are
 stacked with a leading L axis (``params["blocks"]``), as the reference
-stacks them, and a Python loop over the layers takes the place of
-``lax.scan``.  Every mamba block's full-sequence scan goes through the SSD
+stacks them, and a Python loop over the layers (``torch.unbind`` views,
+so a gradient reaches each stacked leaf in one copy) takes the place of
+``lax.scan``.  Serving's full-sequence mamba scans go through the SSD
 scan kernel's entry point (``kernels.ssd_scan.ops.ssd_scan``, the
-reference's ``ssm_impl`` seam).  A ``moe`` block's FFN is
+reference's ``ssm_impl`` seam); :func:`train_loss` scans with
+``mamba2.ssd_chunked``, as the reference trains (the kernel has no
+backward), and with ``cfg.remat`` recomputes each layer's activations in
+the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scan body).  A ``moe`` block's FFN is
 ``models.moe.moe_apply``: at ``cfg.capacity_factor`` over a full
 sequence (a prefill may drop tokens, as the reference's does) and at
 ``num_experts / top_k`` in both decode paths, which never drops.  Serving
@@ -31,8 +36,8 @@ patch positions too: its fill level counts them.  Decode writes the cache
 tensors in place and returns the cache dict; an inactive slot keeps its
 cache rows and ``pos`` bit for bit.
 
-Sequence parallelism, meshes and remat belong with training and
-``launch/`` (A10).
+Sequence parallelism and meshes belong with the distributed half of
+ROADMAP A10 and raise.
 """
 from __future__ import annotations
 
@@ -40,11 +45,12 @@ from typing import Any
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import MULTI_DEVICE, resolve_device
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.pytree import tree_map
 from . import attention as A
 from . import layers as L
+from . import losses
 from . import mamba2 as S
 from . import moe as M
 
@@ -144,12 +150,14 @@ def _attn_block(cfg, bp, x, positions, *, window=None, emit_cache=False):
     return x + m, aux, (kv if emit_cache else None)
 
 
-def _mamba_block(cfg, bp, x):
-    """One mamba layer; its scan runs through the SSD scan kernel."""
+def _mamba_block(cfg, bp, x, ssm_impl=None):
+    """One mamba layer; its scan is ``ssm_impl``, by default the SSD scan
+    kernel's entry point (looked up at the call, so a caller may wrap
+    it)."""
     y, state = S.mamba_apply(bp["mamba"],
                              L.rmsnorm_apply(bp["ln"], x, cfg.norm_eps), cfg,
                              chunk=cfg.ssd_chunk, compute_dtype=cfg.cdtype,
-                             ssm_impl=ssd_ops.ssd_scan)
+                             ssm_impl=ssm_impl or ssd_ops.ssd_scan)
     return x + y, state
 
 
@@ -190,30 +198,58 @@ def _embed_inputs(cfg, params, batch):
     return x, pos, off
 
 
-def _stacked_forward(cfg, params, x, positions, *, window=None):
+def _layers(blocks, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree: ``torch.unbind``
+    views, whose backward stacks the layers' gradients once."""
+    cols = tree_map(lambda t: t.unbind(0), blocks)
+    return [tree_map(lambda c: c[i], cols) for i in range(n)]
+
+
+def _remat(cfg, train: bool, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward when
+    training a config with ``remat`` (the reference's ``jax.checkpoint``
+    of one layer)."""
+    if train and cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _stacked_forward(cfg, params, x, positions, *, window=None,
+                     train: bool = False):
     """Every block in turn.  Returns (x, aux, caches): K/V stacked as (L,
     B, S, KV, hd) (dense; (n_groups, ...) for the hybrid's shared block),
-    SSM states as (L, B, H, N, P) and conv tails as (L, B, 3, width)."""
+    SSM states as (L, B, H, N, P) and conv tails as (L, B, 3, width).
+    ``train``: no caches (``None``), mamba scans by ``ssd_chunked`` and
+    ``cfg.remat`` honoured."""
     aux = _zero_aux(x.device)
     ks, vs = [], []
+    blocks = _layers(params["blocks"], cfg.num_layers)
     if not cfg.uses_mamba:
-        for i in range(cfg.num_layers):
-            x, a, (k, v) = _attn_block(cfg, layer(params["blocks"], i), x,
-                                       positions, window=window,
-                                       emit_cache=True)
+        for bp in blocks:
+            x, a, kv = _remat(cfg, train, lambda x, bp=bp: _attn_block(
+                cfg, bp, x, positions, window=window, emit_cache=not train),
+                x)
             aux = {n: aux[n] + a[n] for n in aux}
-            ks.append(k)
-            vs.append(v)
+            if not train:
+                ks.append(kv[0])
+                vs.append(kv[1])
+        if train:
+            return x, aux, None
         return x, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
     states = []
-    for i in range(cfg.num_layers):
-        x, st = _mamba_block(cfg, layer(params["blocks"], i), x)
+    impl = S.ssd_chunked if train else None
+    for i, bp in enumerate(blocks):
+        x, st = _remat(cfg, train, lambda x, bp=bp: _mamba_block(
+            cfg, bp, x, impl), x)
         states.append(st)
         if _shared_after(cfg, i):
-            x, (k, v) = _shared_block(cfg, params["shared"], x, positions,
-                                      window=window)
+            x, (k, v) = _remat(cfg, train, lambda x: _shared_block(
+                cfg, params["shared"], x, positions, window=window), x)
             ks.append(k)
             vs.append(v)
+    if train:
+        return x, aux, None
     caches = _stack(states)
     if cfg.family == "hybrid":
         caches["k"] = torch.stack(ks) if ks else None
@@ -221,11 +257,11 @@ def _stacked_forward(cfg, params, x, positions, *, window=None):
     return x, aux, caches
 
 
-def backbone(cfg, params, batch, *, window=None):
+def backbone(cfg, params, batch, *, window=None, train: bool = False):
     """-> (final normed hidden states, aux, caches, text offset)."""
     x, positions, off = _embed_inputs(cfg, params, batch)
     x, aux, caches = _stacked_forward(cfg, params, x, positions,
-                                      window=window)
+                                      window=window, train=train)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return x, aux, caches, off
 
@@ -249,6 +285,33 @@ def forward(cfg, params, batch, *, window=None, emit_caches=False):
     x, aux, caches, off = backbone(cfg, params, batch, window=window)
     return (_logits(cfg, params, x, off), aux,
             (caches if emit_caches else None))
+
+
+def train_loss(cfg, params, batch, mesh=None, seq_parallel=False):
+    """-> (total loss, {"ce", "aux_loss", "router_z_loss", "dropped"}):
+    the mean cross-entropy of ``batch["labels"]`` over the text positions
+    (a vlm's logits start after its patches; audio's head has a bias),
+    plus ``aux_loss_weight`` times the MoE router losses (zero for the
+    other families).  Meshes and sequence parallelism raise."""
+    if mesh is not None or seq_parallel:
+        raise NotImplementedError(f"train_loss over a mesh or with "
+                                  f"sequence parallelism {MULTI_DEVICE}")
+    x, aux, _, off = backbone(cfg, params, batch, train=True)
+    if off:
+        x = x[:, off:]
+    if cfg.family == "audio":
+        logits = L.dense_apply(params["lm_head"], x,
+                               compute_dtype=cfg.cdtype).float()
+        loss = losses.plain_ce(logits, batch["labels"], cfg.z_loss)
+    else:
+        tied = cfg.tie_embeddings
+        w = params["embed"]["table"] if tied else params["lm_head"]["w"]
+        loss = losses.vocab_parallel_ce(x, w, batch["labels"], tied=tied,
+                                        z_loss=cfg.z_loss,
+                                        compute_dtype=cfg.cdtype)
+    total = loss + cfg.aux_loss_weight * (aux["aux_loss"]
+                                          + aux["router_z_loss"])
+    return total, {"ce": loss, **aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,166 @@
+"""Checkpoints in the reference's on-disk format (reference
+``repro.train.checkpoint``).
+
+One directory per step, ``<dir>/step_<n:08d>``, holding
+
+  * ``manifest.json`` — step, each leaf's shape and dtype, user metadata;
+  * ``arrays.npz``    — every leaf as a full array, keyed by its path as
+    ``jax.tree_util.keystr`` spells it (``['params']['embed']['table']``).
+
+A checkpoint the reference wrote restores here, and one written here
+restores in the reference (bfloat16 leaves aside, see below).
+Durability: the step is written to ``<dir>.tmp`` and renamed into place;
+``keep_last`` older steps are removed only after the rename.  Leaves are
+written one at a time, as ``np.savez`` writes them (a stored zip member
+``<key>.npy`` each), so the host holds one leaf at a time, and
+``restore`` reads only the leaves of the tree it is given.
+
+bfloat16 leaves: numpy has no bfloat16.  The reference's leaves are
+``ml_dtypes`` arrays, which ``np.savez`` stores under the void descriptor
+``|V2``; this module writes a ``torch.bfloat16`` leaf's 16-bit patterns
+under the same descriptor and reads a ``|V2`` leaf back as those bits,
+exactly.  (The reference's own ``restore`` cannot read such a leaf:
+``astype`` has no cast from ``|V2``, ROADMAP C7.)
+
+``restore`` takes a tree of tensors, or of ``meta`` stand-ins
+(``models.registry.abstract_params``), as the reference takes
+``ShapeDtypeStruct``s; each leaf lands on ``device`` (default: the given
+leaf's own device; a ``meta`` leaf needs ``device``).  Restoring with
+``shardings`` is ROADMAP A10's distributed half and raises.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import zipfile
+
+import numpy as np
+import torch
+
+from repro_torch.device import MULTI_DEVICE, resolve_device
+
+_BF16_DESCR = np.dtype("V2")
+# the default home of checkpoints: the package's build directory, which
+# git ignores
+DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build", "checkpoints")
+
+
+def _flatten(tree, path: str = ""):
+    """(keystr path, leaf) of every leaf of a nested dict, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{path}[{k!r}]")
+    else:
+        yield path, tree
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_DESCR)
+    return t.numpy()
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def save(directory: str, step: int, tree, metadata: dict | None = None,
+         keep_last: int = 3) -> str:
+    """Atomically persist ``tree`` (a nested dict of tensors) at
+    ``directory/step_<n>``; returns that path."""
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    leaves = {}
+    with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), mode="w",
+                         compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, t in _flatten(tree):
+            leaves[key] = {"shape": list(t.shape), "dtype": _dtype_name(t)}
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, _to_numpy(t),
+                                          allow_pickle=False)
+    manifest = {"step": step, "leaves": leaves, "metadata": metadata or {}}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    _gc(directory, keep_last)
+    return final
+
+
+def _gc(directory: str, keep_last: int):
+    steps = sorted(d for d in os.listdir(directory) if d.startswith("step_")
+                   and not d.endswith(".tmp"))
+    for d in steps[:-keep_last]:
+        shutil.rmtree(os.path.join(directory, d))
+
+
+def latest_step(directory: str) -> int | None:
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(directory)
+             if d.startswith("step_") and not d.endswith(".tmp")]
+    return max(steps) if steps else None
+
+
+def _to_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A leaf as read from the file -> a CPU tensor, bit for bit; a
+    ``|V2`` leaf is a bfloat16's 16-bit patterns."""
+    arr = np.require(arr, requirements="C")      # keeps a 0-dim leaf 0-dim
+    if arr.dtype == _BF16_DESCR:
+        if dtype_name != "bfloat16":
+            raise ValueError(f"a |V2 leaf recorded as {dtype_name!r}: only "
+                             "bfloat16 is stored so")
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def restore(directory: str, step: int, like_tree, shardings=None, *,
+            device: str | torch.device | None = None):
+    """The checkpoint at ``step`` in the structure, shapes and dtypes of
+    ``like_tree`` (tensors or ``meta`` stand-ins), each leaf cast to its
+    like's dtype and placed on ``device`` or else on the like leaf's own
+    device.  A shape that differs raises ``ValueError``."""
+    if shardings is not None:
+        raise NotImplementedError(f"restore with shardings {MULTI_DEVICE}")
+    dev = None if device is None else resolve_device(device)
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        recorded = json.load(f)["leaves"]
+
+    def leaf_device(key, leaf):
+        if dev is not None:
+            return dev
+        if leaf.is_meta:
+            raise ValueError(f"restore: {key} is a meta stand-in; pass "
+                             "device=")
+        return leaf.device
+
+    out = {}
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        for key, leaf in _flatten(like_tree):
+            arr = z[key]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"checkpoint leaf {key} shape {arr.shape} "
+                                 f"!= expected {tuple(leaf.shape)}")
+            t = _to_tensor(arr, recorded[key]["dtype"])
+            out[key] = t.to(device=leaf_device(key, leaf), dtype=leaf.dtype)
+    return _unflatten(like_tree, out)
+
+
+def _unflatten(like_tree, flat: dict, path: str = ""):
+    if isinstance(like_tree, dict):
+        return {k: _unflatten(v, flat, f"{path}[{k!r}]")
+                for k, v in like_tree.items()}
+    return flat[path]
+
+
+def read_metadata(directory: str, step: int) -> dict:
+    path = os.path.join(directory, f"step_{step:08d}", "manifest.json")
+    with open(path) as f:
+        return json.load(f)["metadata"]

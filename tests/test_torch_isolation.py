@@ -1,6 +1,9 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
-``jax`` and nothing of the reference package ``repro``; an entry point asked
-for the card raises without one; the kernel build fails loudly."""
+``jax`` and nothing of the reference package ``repro`` (the training path,
+``train/``, ``launch/`` and ``data/tokens.py``, runs with them blocked);
+an entry point asked for the card raises without one; the kernel build
+fails loudly; every kernel wrapper refuses an input that requires grad
+under grad mode (no kernel has a backward)."""
 import ast
 import os
 import pathlib
@@ -118,6 +121,25 @@ assert lint_tree()["findings"] == [] and run_selftest()["ok"]
 y, st = ssd_scan(torch.ones(1, 5, 2, 4), torch.ones(1, 5, 2), -torch.ones(2),
                  torch.ones(1, 5, 1, 3), torch.ones(1, 5, 1, 3), chunk=2)
 assert y.shape == (1, 5, 2, 4) and st.shape == (1, 2, 3, 4)
+import contextlib, io, tempfile
+from repro_torch.launch import serve as launch_serve, train as launch_train
+from repro_torch.train import optimizer
+with tempfile.TemporaryDirectory() as d, \
+        contextlib.redirect_stdout(io.StringIO()):
+    hist = launch_train.main(["--arch", "qwen2-1.5b", "--reduced",
+                              "--device", "cpu", "--steps", "2", "--seq",
+                              "16", "--global-batch", "2", "--ckpt-dir", d])
+    out = launch_serve.main(["--arch", "qwen2-1.5b", "--reduced",
+                             "--device", "cpu", "--batch", "1",
+                             "--new-tokens", "2", "--ckpt-dir", d])
+assert len(hist) == 2 and out.shape == (1, 2)
+cfg = configs.reduced(configs.get("mamba2-780m"))
+params = T.init(cfg, torch.Generator().manual_seed(0))
+_, _, met = registry.make_train_step(cfg, optimizer.AdamConfig())(
+    params, optimizer.init(params, optimizer.AdamConfig()),
+    dict(tokens=torch.ones(1, 8, dtype=torch.int32),
+         labels=torch.ones(1, 8, dtype=torch.int32)))
+assert torch.isfinite(met["loss"])
 assert not any(n in ("jax", "repro", "ml_dtypes")
                or n.startswith(("jax.", "repro.", "ml_dtypes."))
                for n in sys.modules if sys.modules[n])
@@ -312,3 +334,57 @@ def test_library_key_follows_the_shared_headers(tmp_path, monkeypatch):
     assert _build.library_path("k") == before
     (tmp_path / "shared.cuh").write_text("// v2\n")
     assert _build.library_path("k") != before
+
+
+def _guard_cases():
+    """(wrapper call, its inputs) for each of the six kernel wrappers, on
+    the CPU (the guard runs before any device dispatch)."""
+    from repro_torch import weights
+    from repro_torch.core.quantization import QuantConfig, quantize_params
+    from repro_torch.kernels.fastgrnn_cell.kernel import (DenseStep,
+                                                          FastGRNNStep,
+                                                          WindowScan)
+    from repro_torch.kernels.fastgrnn_cell.qstep import StepWeights
+    from repro_torch.kernels.lut_act.kernel import LUTAct
+    from repro_torch.kernels.q15_matmul.kernel import Q15Matmul
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    params = weights.random_params(0)
+    sw = StepWeights.from_quantized(quantize_params(params, QuantConfig()))
+    h, x, mask = torch.zeros(4, 16), torch.ones(4, 3), torch.ones(
+        4, dtype=torch.bool)
+    wq = torch.ones(5, 6, dtype=torch.int16)
+    return {
+        "q15_step": (FastGRNNStep(sw, "cpu"), (h, x, mask), {}),
+        "q15_step_dense": (DenseStep(sw, "cpu"), (h, x, mask), {}),
+        "fastgrnn_window": (WindowScan(params, "cpu"),
+                            (torch.ones(6, 2, 3),), {}),
+        "lut_act": (LUTAct(), (torch.linspace(-9, 9, 50), "sigmoid"), {}),
+        "q15_matmul": (Q15Matmul(), (torch.ones(2, 5), wq,
+                                     torch.tensor(0.5)), {}),
+        "ssd_scan": (SSDScan(), (torch.ones(2, 5, 4), torch.ones(2, 5, 1),
+                                 -torch.ones(2, 1), torch.ones(2, 5, 3),
+                                 torch.ones(2, 5, 3)), {"chunk": 2}),
+    }
+
+
+@pytest.mark.parametrize("name", ["q15_step", "q15_step_dense",
+                                  "fastgrnn_window", "lut_act", "q15_matmul",
+                                  "ssd_scan"])
+def test_kernel_wrappers_refuse_a_gradient(name):
+    """No kernel has a backward, and a launch's output has no grad_fn: a
+    requires-grad floating input under grad mode raises before anything
+    runs, on any device; under ``no_grad`` or detached it runs."""
+    call, args, kw = _guard_cases()[name]
+    floats = [i for i, a in enumerate(args)
+              if isinstance(a, torch.Tensor) and a.is_floating_point()]
+    assert floats
+    for i in floats:
+        live = list(args)
+        live[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match=f"{name}: an input requires "
+                           "grad"):
+            call(*live, **kw)
+        with torch.no_grad():
+            call(*live, **kw)
+        live[i] = live[i].detach()
+        call(*live, **kw)

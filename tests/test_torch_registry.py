@@ -8,11 +8,13 @@
   the reference's numbers for every full config, all ``meta`` tensors
   (nothing allocated, ``nemotron-4-340b`` included); the prefill, decode
   and quantized decode steps against the reference's on its own trees;
-  the training half and meshes refused, naming A10.
+  meshes refused, naming A10's distributed half; the
+  training half itself is ``tests/test_torch_lm_train.py``'s.
 * Mirror of ``tests/test_models_smoke.py``: a reduced config of every
   arch runs ``forward`` (and ``decode_step`` where it has one) on the
   CPU with finite outputs of the right shapes; the full configs' counts
-  in the reference's bands.  (Its train-step case waits for A10.)
+  in the reference's bands.  (Its train-step case is
+  ``tests/test_torch_train_step.py``.)
 * Baselines (Table IV): counts 12,518 / 1,280 / 960 and init layouts as
   the reference's; the MLP's logits and loss and the LSTM / GRU
   trajectories within 1e-6 of the reference's on its own parameters.
@@ -121,9 +123,16 @@ def test_full_config_parameter_counts_sane():
 
 
 def test_training_half_and_meshes_are_refused():
+    """The training half trains on one device; over a mesh or with
+    sequence parallelism it is refused, as are the serving steps'
+    meshes and split-KV decoding (the distributed half of A10)."""
+    from repro_torch.train.optimizer import AdamConfig
     cfg = C.reduced(C.get("qwen2-1.5b"))
-    for call in (lambda: R.abstract_opt(cfg),
-                 lambda: R.make_train_step(cfg),
+    assert all_meta(R.abstract_opt(cfg, AdamConfig()))
+    assert callable(R.make_train_step(cfg, AdamConfig()))
+    for call in (lambda: R.make_train_step(cfg, AdamConfig(), mesh=object()),
+                 lambda: R.make_train_step(cfg, AdamConfig(),
+                                           seq_parallel=True),
                  lambda: R.make_prefill_step(cfg, mesh=object()),
                  lambda: R.make_prefill_step(cfg, seq_parallel=True),
                  lambda: R.make_decode_step(cfg, splitkv=True),
