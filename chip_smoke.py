@@ -293,6 +293,17 @@ Phases (any failure exits non-zero; nothing is caught):
     kernel wrappers, and ``ops.ssd_scan``, refuses a requires-grad CUDA
     input under grad mode.
 
+20. A 1 x 1 ``nccl`` mesh in a process of its own (phase 19 (c)'s
+    deterministic cuBLAS): Qwen2-1.5B's width at 2 of 28 layers, seq
+    512 x 2, two ``make_train_step`` steps with parameters and Adam
+    moments as DTensors, every loss, grad norm and final parameter bitwise
+    the no-mesh step's; the split-KV decode of 4 tokens bitwise the plain
+    decode's.
+
+Phases 12 and 19 also print ``launch.roofline.Roofline.row()`` for the
+decode tick and the training step beside their measured times, with the
+weight bytes at the config's dtype and at what the port holds.
+
 Then the script's wall time.  The last lines are the ``{"kernels":
 [...]}`` record, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": ...}``.
@@ -337,14 +348,6 @@ PROFILE_WARM = 10         # untraced ticks before the profiled window
 PROFILE_TICKS = 20        # ticks in the profiled steady window
 TIMING_SETS = 8           # input sets cycled by the timing phase (> L2)
 L2_BYTES = 50 * 2**20     # H100 L2 (data sheet)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# fp32 instructions per second outside the tensor cores: the data sheet's
-# 67 TFLOP/s counts an FMA as two operations, so one instruction (an FMA,
-# an add or a multiply) issues at half that rate (132 SMs x 128 lanes x
-# ~1.98 GHz).  The FastGRNN kernels' functions round between each multiply
-# and add, so each is an instruction of its own there.
-FP32_OPS_PER_S = 67e12 / 2
-BF16_FLOP_PER_S = 989e12   # dense bfloat16 on the tensor cores (data sheet)
 W_BATCH = 131_072         # window scan: windows per launch ...
 W_STEPS = 128             # ... of this many samples (one paper window)
 LUT_ELEMS = 1 << 24       # LUT kernel-vs-plain elements per configuration
@@ -417,6 +420,13 @@ RESUME_STEPS = 6
 RESUME_EVERY = 2          # checkpoints at steps 2, 4 and 6 ...
 RESUME_FAULT = 5          # ... and a fault before step 5: step 4 replays
 RESUME_TIMEOUT_S = 600
+MESH_LAYERS = 2           # phase 20: Qwen2-1.5B width, cut in depth ...
+MESH_SEQ = 512            # ... at seq 512 x batch 2
+MESH_BATCH = 2
+MESH_STEPS = 2
+MESH_DECODE = 4           # split-KV decode: tokens after an 8-token prompt
+MESH_TIMEOUT_S = 300
+MESH_DIR = os.path.join(SRC, "repro_torch", "_build", "chip_smoke_mesh")
 DETERMINISTIC_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG of phase 19 (c)
 SSM_TRAIN_LAYERS = 4      # phase 19 (d): mamba2-780m, 4 of 48 layers
 SSM_TRAIN_SEQ = 1_024
@@ -2006,6 +2016,7 @@ def timing_jobs(torch, sw, art) -> dict:
                                                           make_fastgrnn_step)
     from repro_torch.kernels.fastgrnn_cell.ops import Q15StreamStep
     from repro_torch.kernels.lut_act.kernel import LUTAct
+    from repro_torch.launch import roofline as rl
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -2085,8 +2096,8 @@ def timing_jobs(torch, sw, art) -> dict:
             # products of two bfloat16 values on the tensor cores, float32
             # sums; one multiply by the scale per output beside them
             ops=2 * m * k * n,
-            ops_ms=max(2 * m * k * n / BF16_FLOP_PER_S,
-                       m * n / FP32_OPS_PER_S) * 1e3,
+            ops_ms=max(2 * m * k * n / rl.BF16_FLOP_PER_S,
+                       m * n / rl.FP32_OPS_PER_S) * 1e3,
             ops_what=f"{2 * m * k * n} bfloat16 tensor-core FLOP over 989 "
                      f"T/s (the {m * n} scale multiplies over 33.5 T/s "
                      f"beside them)",
@@ -2168,6 +2179,7 @@ def ssd_least_work(h, g, s, p, n, *, tensor_cores: bool = True) -> tuple:
     float32 FMA.  The two units issue side by side, so the time is the
     larger of theirs.  Returns (ms, chunk length, float32 instructions,
     tensor-core FLOP)."""
+    from repro_torch.launch import roofline as rl
     best = None
     for q in range(1, s + 1):
         ks = [min(q, s - c0) for c0 in range(0, s, q)]
@@ -2178,7 +2190,7 @@ def ssd_least_work(h, g, s, p, n, *, tensor_cores: bool = True) -> tuple:
             flop = 2 * cb + 6 * (mx + ch)
         else:
             fp32, flop = fp32 + cb + mx + ch, 0
-        ms = max(fp32 / FP32_OPS_PER_S, flop / BF16_FLOP_PER_S) * 1e3
+        ms = max(fp32 / rl.FP32_OPS_PER_S, flop / rl.BF16_FLOP_PER_S) * 1e3
         if best is None or ms < best[0]:
             best = (ms, q, fp32, flop)
     return best
@@ -2194,6 +2206,7 @@ def timing(torch, sw, art, tree=None) -> dict:
     Rounds run every kernel, then every plain version, and then both in
     the reverse order.  With a parent ``tree`` (built in phase 2), its K1,
     K2, K5 and K6 run in turns beside this checkout's."""
+    from repro_torch.launch import roofline as rl
     from torch.profiler import ProfilerActivity, profile
 
     jobs = timing_jobs(torch, sw, art)
@@ -2249,8 +2262,8 @@ def timing(torch, sw, art, tree=None) -> dict:
                             for k, ph in zip(job["prof"], phases)))
         else:
             prof_k = kernel_device_us(prof, f"{n.split()[0]}_kernel")
-        t_bytes = job["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = job.get("ops_ms", job["ops"] / FP32_OPS_PER_S * 1e3)
+        t_bytes = job["bytes"] / rl.HBM_BYTES_PER_S * 1e3
+        t_ops = job.get("ops_ms", job["ops"] / rl.FP32_OPS_PER_S * 1e3)
         ops_what = job.get("ops_what",
                            f"{job['ops']} fp32 instructions over 33.5 T/s")
         bound = max(t_bytes, t_ops)
@@ -2686,7 +2699,38 @@ def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
               "no mamba layer, so no K6 launch")
           + f"; checks in {check:.1f} s")
     return {"eng": eng, "k5": k5, "k5_err": k5_err, "k6": k6,
-            "k6_err": k6_err}
+            "k6_err": k6_err, "decode_p50_s": dec["p50_us"] / 1e6}
+
+
+def roofline_rows(label: str, cfg, shape, measured_s: float,
+                  held_weight_bytes: float, held_opt_bytes=None) -> None:
+    """``launch.roofline.Roofline.row()`` of one step on one card (no
+    collective) beside its measured time: once with ``launch.analytic``'s
+    weight bytes at the config's dtype, once with the bytes of the weights
+    (and Adam state) the port holds (float32 dense weights, ROADMAP
+    C2)."""
+    import dataclasses
+    from repro_torch.launch import analytic, roofline as rl
+    from repro_torch.models import registry
+    cost = analytic.cell_cost(cfg, shape,
+                              n_params=registry.param_count(cfg),
+                              batch_shards=1)
+    held = dataclasses.replace(cost, weight_bytes_per_pass=held_weight_bytes,
+                               opt_bytes=(cost.opt_bytes if held_opt_bytes
+                                          is None else held_opt_bytes))
+    flops = registry.step_flops_model(cfg, shape)
+    for what, c in (("config dtype", cost), ("weights held", held)):
+        r = rl.Roofline.from_cost(c, shape.kind, pods=1, data=1, model=1,
+                                  collective_bytes_per_device=0.0,
+                                  model_flops_global=flops)
+        row = {k: (round(v, 9) if isinstance(v, float) else v)
+               for k, v in r.row().items()}
+        print(f"{label} roofline ({what}: weights "
+              f"{c.weight_bytes_per_pass:,.0f} B a pass, HBM "
+              f"{r.bytes_per_device:,.0f} B, {r.flops_per_device:.4e} "
+              f"FLOP): {json.dumps(row)}; bound {r.t_bound * 1e3:.3f} ms "
+              f"({r.bottleneck}) against {measured_s * 1e3:.3f} ms measured: "
+              f"the bound is {100 * r.t_bound / measured_s:.2f} % of it")
 
 
 def lm_path(torch, np, dev, card) -> dict:
@@ -2701,6 +2745,10 @@ def lm_path(torch, np, dev, card) -> dict:
     reqs = lm_requests(np, cfg.vocab_size, LM_REQUESTS, LM_PROMPT, LM_NEW)
     out = serve_lm(torch, np, dev, card, cfg, params, slots=LM_SLOTS,
                    max_len=LM_MAX_LEN, reqs=reqs, label="LM path")
+    from repro_torch.configs.base import ShapeConfig
+    roofline_rows("LM decode tick", cfg, ShapeConfig(
+        "decode", LM_MAX_LEN, LM_SLOTS, "decode"), out["decode_p50_s"],
+        tree_bytes(out["eng"].params))
     lm_profiled_ticks(torch, np, out.pop("eng"), cfg.vocab_size,
                       LM_PROMPT[1], LM_NEW[1], "LM profiled window")
     lm_decode_continuity(torch, np, dev, cfg, params, (32, 57), "LM")
@@ -3358,6 +3406,7 @@ def vlm_head(torch, dev, wq, scale) -> None:
     64, at the plan ``Q15Matmul.plan`` reports for each; then its device
     time at the slots' M beside the ``torch.mm`` yardstick, in turns
     (K5, mm, mm, K5), and its byte bound."""
+    from repro_torch.launch import roofline as rl
     from repro_torch.kernels.q15_matmul.kernel import Q15Matmul
     mm = Q15Matmul()
     k, n = wq.shape
@@ -3379,8 +3428,8 @@ def vlm_head(torch, dev, wq, scale) -> None:
     del lsets
     m = LM_SLOTS
     nbytes = 4 * m * k + 2 * k * n + 4 + 4 * m * n
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(2 * m * k * n / BF16_FLOP_PER_S, m * n / FP32_OPS_PER_S) * 1e3
+    bound = nbytes / rl.HBM_BYTES_PER_S * 1e3
+    t_ops = max(2 * m * k * n / rl.BF16_FLOP_PER_S, m * n / rl.FP32_OPS_PER_S) * 1e3
     ms, lib_ms = min(kern), min(lib)
 
     def us(ts):
@@ -3592,6 +3641,7 @@ def train_full(torch, np, dev, card):
     ones), "ckpt_dir"}."""
     from repro_torch import configs
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline as rl
     from repro_torch.models import registry
     from repro_torch.train.optimizer import AdamConfig
 
@@ -3648,7 +3698,7 @@ def train_full(torch, np, dev, card):
           f"a synchronize); {tokens / p50:,.1f} tokens/s; model FLOPs "
           f"(registry.step_flops_model, 6 N D) {flops:.4e} a step = "
           f"{flops / p50 / 1e12:.1f} TFLOP/s = "
-          f"{100 * flops / p50 / BF16_FLOP_PER_S:.2f} % of the bf16 dense "
+          f"{100 * flops / p50 / rl.BF16_FLOP_PER_S:.2f} % of the bf16 dense "
           f"peak; peak device memory {peak:,} B ({peak / 2**30:.2f} GiB); "
           f"wall {wall:.1f} s; card {card}")
     print(f"train path: losses " + ", ".join(
@@ -3657,6 +3707,12 @@ def train_full(torch, np, dev, card):
     print(f"train path: checkpoint at step {TRAIN_STEPS}: {size:,} B "
           f"({size / 2**30:.2f} GiB: parameters and Adam state) saved in "
           f"{saves[-1]:.1f} s ({size / saves[-1] / 1e9:.2f} GB/s)")
+    st = tr.state
+    roofline_rows("train step", cfg, ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"), p50,
+        tree_bytes(st["params"]), 2 * (tree_bytes(st["opt"]["m"])
+                                       + tree_bytes(st["opt"]["v"])
+                                       + tree_bytes(st["params"])))
     train_breakdown(torch, np, cfg, acfg, tr.state, tr.batch_fn(0), p50)
     run = {"cfg": cfg, "params": tr.state["params"], "ckpt_dir": ckpt_dir}
     del tr, hist
@@ -3885,6 +3941,125 @@ def train_resume(torch, np, dev) -> None:
           + f"; wall {time.perf_counter() - t0:.1f} s")
 
 
+def mesh_check_apart() -> None:
+    """Phase 20 in a process of its own (a process group of one ``nccl``
+    rank, deterministic cuBLAS as in phase 19 (c)); fails unless it
+    exits 0 within MESH_TIMEOUT_S."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=DETERMINISTIC_CUBLAS)
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.mesh_check_main())"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=MESH_TIMEOUT_S)
+    sys.stdout.write(out.stdout)
+    sys.stderr.write(out.stderr)
+    if out.returncode != 0:
+        fail(f"mesh: its process exited {out.returncode}")
+
+
+def mesh_check_main() -> int:
+    """Entry point of :func:`mesh_check_apart`'s process."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import mesh as M
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    dev = M.init_process_group("cuda", init_method=f"file://{MESH_DIR}/rdv",
+                               rank=0, world_size=1)
+    try:
+        mesh_check(torch, np, dev, M.make_host_mesh(data=1, model=1))
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return 0
+
+
+def mesh_check(torch, np, dev, mesh) -> None:
+    """Phase 20: a 1 x 1 ``nccl`` mesh against no mesh at Qwen2-1.5B's full
+    width (MESH_LAYERS layers): MESH_STEPS ``make_train_step`` steps at
+    MESH_SEQ x MESH_BATCH, parameters and Adam moments as DTensors
+    (``launch.sharding.param_pspecs``), every loss, gradient norm and
+    final parameter bitwise the no-mesh step's; then the split-KV decode
+    of MESH_DECODE tokens after an 8-token prefill, logits bitwise the
+    plain decode's.  Under ``torch.use_deterministic_algorithms``, as
+    phase 19 (c)."""
+    import dataclasses
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import optimizer as opt
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=MESH_LAYERS)
+    acfg = opt.AdamConfig(state_dtype=cfg.opt_state_dtype)
+    batches = token_batches(torch, dev, cfg, MESH_SEQ, MESH_BATCH)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = []
+    try:
+        for m in (None, mesh):
+            p = registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+            if m is not None:
+                p = sh.distribute(p, sh.named(m, sh.param_pspecs(p, m)))
+            o = opt.init(p, acfg)
+            step = registry.make_train_step(cfg, acfg, mesh=m)
+            hist = []
+            for i in range(MESH_STEPS):
+                p, o, met = step(p, o, batches(i))
+                hist.append((met["loss"].item(), met["grad_norm"].item()))
+            leaves = [t.full_tensor() if isinstance(t, DTensor) else t
+                      for t in tree_leaves(p)]
+            runs.append((hist, leaves,
+                         isinstance(next(tree_leaves(o["m"])), DTensor)))
+            del p, o, step
+            gc.collect()
+        (h0, p0, _), (h1, p1, sharded) = runs
+        same = [torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                            else a, b.view(torch.int16) if b.dtype ==
+                            torch.bfloat16 else b) for a, b in zip(p0, p1)]
+        if h0 != h1 or not all(same) or not sharded:
+            fail(f"mesh: 1 x 1 step history {h1} against {h0}; "
+                 f"{sum(same)} of {len(same)} parameters bitwise; moments "
+                 f"DTensors {sharded}")
+        del runs, p0, p1
+        p = registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        rng = np.random.default_rng(SEED)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (MESH_BATCH, 8 + MESH_DECODE))
+            .astype(np.int32)).to(dev)
+        logits = []
+        with torch.no_grad():
+            for m in (None, mesh):
+                cache = T.prefill(cfg, p, {"tokens": toks[:, :8]},
+                                  max_len=8 + MESH_DECODE)[1]
+                dec = registry.make_decode_step(cfg, mesh=m,
+                                                splitkv=m is not None)
+                out = []
+                for t in range(8, 8 + MESH_DECODE):
+                    lg, cache = dec(p, cache, toks[:, t:t + 1])
+                    out.append(lg)
+                logits.append(torch.stack(out))
+        if not torch.equal(*logits):
+            fail("mesh: the 1 x 1 split-KV decode's logits differ from the "
+                 "plain decode's by up to "
+                 f"{float((logits[0] - logits[1]).abs().max()):.3e}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"mesh: {TRAIN_ARCH} width, {MESH_LAYERS} of "
+          f"{configs.get(TRAIN_ARCH).num_layers} layers, a 1 x 1 nccl mesh "
+          f"(launch.mesh.make_host_mesh): {MESH_STEPS} make_train_step steps "
+          f"at seq {MESH_SEQ} x batch {MESH_BATCH}, parameters and Adam "
+          f"moments DTensors placed by param_pspecs, losses and grad norms "
+          f"{h1} and every final parameter bitwise the no-mesh step's; "
+          f"split-KV decode of {MESH_DECODE} tokens after an 8-token "
+          f"prefill, logits bitwise the plain decode's; wall "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def guard_cases(torch, dev) -> dict:
     """(wrapper, inputs) of each kernel wrapper on the card, tiny sizes."""
     from repro_torch import weights
@@ -4091,6 +4266,7 @@ def main() -> int:
     vlm_path(torch, np, dev, card)
     audio_path(torch, np, dev, card)
     train_path(torch, np, dev, card)
+    mesh_check_apart()
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s, the "
           f"kernels' build included")
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"

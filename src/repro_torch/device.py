@@ -1,12 +1,7 @@
-"""Device selection shared by every entry point of the port, and the
-one refusal of what needs more than one device."""
+"""Device selection shared by every entry point of the port."""
 from __future__ import annotations
 
 import torch
-
-MULTI_DEVICE = ("belongs with the distributed half of ROADMAP A10 "
-                "(process groups, meshes, sharding, sequence parallelism and "
-                "split-KV decoding), which is not ported yet")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -28,15 +28,16 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.roofline import FP32_FLOP_PER_S, HBM_BYTES_PER_S
 from repro_torch.obs.transfers import TransferLedger
 from . import qstep
 from .kernel import WindowScan, make_fastgrnn_step
 
 #: H100 SXM data-sheet peaks used by :meth:`Q15StreamStep.roofline`: HBM3
 #: bandwidth and the float32 rate of the CUDA cores (the step kernel runs
-#: no tensor-core instruction).
-H100_HBM_BYTES_PER_S = 3.35e12
-H100_FP32_FLOPS = 67e12
+#: no tensor-core instruction), from the port's one home of them.
+H100_HBM_BYTES_PER_S = HBM_BYTES_PER_S
+H100_FP32_FLOPS = FP32_FLOP_PER_S
 
 
 _NP = {torch.float32: np.float32, torch.bool: np.bool_}

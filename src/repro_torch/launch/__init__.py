@@ -1,3 +1,4 @@
-"""Launchers (reference ``repro.launch``): ``train`` and ``serve`` on one
-device.  The mesh, sharding, dry-run and roofline launchers are ROADMAP
-A10's distributed half."""
+"""Launchers (reference ``repro.launch``): ``train`` and ``serve``; the
+analytic cost model and the H100 roofline (``analytic``, ``roofline``);
+meshes over ``torch.distributed`` and the sharding rules (``mesh``,
+``sharding``)."""

@@ -10,13 +10,14 @@ flash-style online softmax of ``chunked_attention`` for prompts of
 backward (a ``torch.autograd.Function`` in place of its ``custom_vjp``).
 The decode functions write the new token's K/V into the cache tensors
 they are given, in place, and return them; a row that is not active keeps
-its cache bit for bit.  Sequence-sharded flash decoding belongs with the
-distributed half of ROADMAP A10 and is not here.
+its cache bit for bit.  :func:`attn_decode_splitkv` is flash decoding over
+a mesh: each ``model`` rank holds one span of the cache's sequence.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import mesh as M
 from . import layers as L
 
 CHUNKED_THRESHOLD = 2048  # use the flash-style path for S >= this
@@ -289,3 +290,49 @@ def attn_decode(p, x, cache_k, cache_v, cache_len: int, cfg, *, window=None,
     valid = valid[None, :].expand(x.shape[0], s_max)
     return (_attend_cache(p, q, x, cache_k, cache_v, valid, cfg,
                           compute_dtype), cache_k, cache_v)
+
+
+def attn_decode_splitkv(p, x, cache_k, cache_v, cache_len: int, cfg, *,
+                        mesh, window=None, compute_dtype=torch.bfloat16):
+    """Flash decoding over a cache whose SEQUENCE dim is split over the
+    ``model`` ranks in rank order (the reference's split-KV decode, for KV
+    head counts that do not divide the model axis).  Runs on every rank:
+    ``cache_k``/``cache_v`` (B, S_loc, KV, hd) are this rank's span of
+    positions ``[rank * S_loc, (rank + 1) * S_loc)``; ``cache_len`` the
+    global fill level.  The rank whose span holds ``cache_len`` writes the
+    new token's K/V there, in place.  Each rank attends over its span as
+    :func:`attn_decode` attends over the whole cache, and the spans'
+    outputs merge by their log-sum-exps over ``model``: (B, H) weights and
+    (B, H, hd) outputs a layer.  At one rank the weight is exp(0) = 1, so
+    a 1 x 1 mesh gives :func:`attn_decode`'s output bit for bit.  Returns
+    (out, cache_k, cache_v)."""
+    s_loc = cache_k.shape[1]
+    me = M.axis_index(mesh, "model")
+    b = x.shape[0]
+    pos = torch.full((b, 1), cache_len, dtype=torch.long, device=x.device)
+    q, k, v = _qkv(p, x, cfg, compute_dtype)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    lpos = cache_len - me * s_loc
+    if 0 <= lpos < s_loc:                      # this rank owns the slot
+        cache_k[:, lpos] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, lpos] = v[:, 0].to(cache_v.dtype)
+    gpos = me * s_loc + torch.arange(s_loc, device=x.device)
+    valid = gpos <= cache_len
+    if window is not None:
+        valid = valid & (gpos > cache_len - window)
+    valid = valid[None, :].expand(b, s_loc)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kr = _repeat_kv(cache_k.to(compute_dtype), H // KV)
+    vr = _repeat_kv(cache_v.to(compute_dtype), H // KV)
+    o = attention_scores(q, kr, vr, causal=False, kv_len_mask=valid)
+    # this span's log-sum-exp of the scores, (B, 1, H)
+    logits = torch.einsum("bqhd,bkhd->bqhk", q.float(), kr.float()) * \
+        hd ** -0.5
+    logits = torch.where(valid[:, None, None, :], logits, NEG)
+    lse = torch.logsumexp(logits, dim=-1)
+    mx = M.pmax(lse, mesh, "model")
+    wgt = torch.exp(lse - mx)
+    wgt = wgt / M.psum(wgt, mesh, "model")
+    o = M.psum(o.float() * wgt[..., None], mesh, "model").to(o.dtype)
+    return _out(p, o, x, cfg, compute_dtype), cache_k, cache_v

@@ -14,23 +14,28 @@ the depthwise conv as three (x, B, C), as in the reference.
 
 Shapes: x (B, S, H, P) with H * P = d_inner; dt (B, S, H); A (H,)
 negative; B, C (B, S, G, N), G groups broadcast over H // G heads each;
-the state (B, H, N, P).  The sequence-parallel block (``mamba_apply_seq``)
-belongs with meshes and training (ROADMAP A10).
+the state (B, H, N, P).  :func:`mamba_apply_seq` is the
+sequence-parallel (context-parallel) block, run on every rank of a mesh
+over the rank's span of the sequence.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as M
 from . import layers as L
 
 
-def ssd_chunked(x, dt, A, B, C, *, chunk: int = 256, h0=None):
+def ssd_chunked(x, dt, A, B, C, *, chunk: int = 256, h0=None,
+                return_cs: bool = False):
     """Returns (y (B, S, H, P) in x's dtype, final state (B, H, N, P)
-    float32).  As the reference: S zero-padded to a multiple of the chunk,
-    the intra-chunk product taken over M cast to x's dtype, and the
+    float32[, cs]).  As the reference: S zero-padded to a multiple of the
+    chunk, the intra-chunk product taken over M cast to x's dtype, and the
     intra- and inter-chunk terms each rounded to x's dtype before their
-    sum."""
+    sum.  ``return_cs``: also the (B, S, H) inclusive cumsum of dt * A
+    over the whole span, which the sequence-parallel correction needs (y
+    is linear in the incoming state: y(h0) = y(0) + C_i exp(cs_i) h0)."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -82,6 +87,12 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 256, h0=None):
     y_off = torch.einsum("bcihn,bcih,bchnp->bcihp", Ch, torch.exp(cs),
                          h_prevs).to(x.dtype)
     y = (y_diag + y_off).reshape(b, sp, h, p)[:, :s]
+    if return_cs:
+        # the span's cumsum: each chunk's own plus the closed earlier chunks'
+        last = cs[:, :, -1, :]
+        prior = torch.cumsum(last, dim=1) - last
+        cs_full = (cs + prior[:, :, None, :]).reshape(b, sp, h)[:, :s]
+        return y, state, cs_full
     return y, state
 
 
@@ -208,6 +219,79 @@ def mamba_apply(p, xin, cfg, *, chunk: int = 256,
     y = L.rmsnorm_apply(p["gn"], y * _silu(z), cfg.norm_eps)
     out = L.dense_apply(p["out_proj"], y, compute_dtype=cd)
     return out, {"ssm": state, "conv": conv_tails}
+
+
+# ---------------------------------------------------------------------------
+# The sequence-parallel (context-parallel) block, on every rank of a mesh
+# over the rank's span of the sequence, every weight whole.
+#
+# The SSD recurrence is associative in (decay, state), and y is LINEAR in
+# the incoming state h0: y(h0) = y(0) + C_i exp(cs_i) h0.  So each rank
+# runs its span from h0 = 0, the ranks' (span decay, final state) pairs
+# are all-gathered, each rank folds its predecessors', and adds the
+# correction: a state exchange and a 3-sample conv halo in place of the
+# per-layer all-reduce of (B, S, D) activations.
+# ---------------------------------------------------------------------------
+
+def _conv_with_context(u, ctx, w, b):
+    """Causal conv whose first W - 1 inputs come from the previous rank's
+    span tail (zeros on the first rank: the true start)."""
+    y = _causal_conv(torch.cat([ctx, u], dim=1), w, b)
+    return y[:, ctx.shape[1]:]
+
+
+def mamba_apply_seq(p, xin, cfg, *, mesh, axis: str = "model",
+                    chunk: int = 256, compute_dtype=torch.bfloat16):
+    """The block over this rank's span ``xin`` (B, S_loc, D) of a sequence
+    split over ``axis`` in rank order.  Returns (out, {"ssm": the GLOBAL
+    final state (the same on every rank), "conv": the global tail (the
+    last rank's)}).  Differentiable through its collectives."""
+    b, s, _ = xin.shape
+    d_inner, pdim, n_heads, g, n = mamba_dims(cfg)
+    cd = compute_dtype
+    nsh, me = M.axis_size(mesh, axis), M.axis_index(mesh, axis)
+
+    z, xr, Br, Cr, dt = _projections(p, xin, cd)
+    tails = {"x": _conv_tail(xr), "B": _conv_tail(Br), "C": _conv_tail(Cr)}
+
+    def conv_sp(t, wname, bname):
+        ctx = M.shift_next(_conv_tail(t), mesh, axis)
+        return _silu(_conv_with_context(t, ctx, p[wname].to(cd),
+                                        p[bname].to(cd)))
+
+    xr = conv_sp(xr, "conv_x", "conv_x_b")
+    Br = conv_sp(Br, "conv_B", "conv_B_b")
+    Cr = conv_sp(Cr, "conv_C", "conv_C_b")
+    x = xr.reshape(b, s, n_heads, pdim)
+    B = Br.reshape(b, s, g, n)
+    C = Cr.reshape(b, s, g, n)
+    dt = _softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    y0, state, cs = ssd_chunked(x, dt, A, B, C, chunk=chunk, return_cs=True)
+    dg = M.stack_gather(torch.exp(cs[:, -1]), mesh, axis)   # (nsh, b, h)
+    sg = M.stack_gather(state, mesh, axis)                  # (nsh, b,h,n,p)
+    run = torch.zeros_like(state)
+    h_in = run
+    for d in range(nsh):                                    # a tiny fold
+        # a select on every rank, as the reference's where: each rank's
+        # graph then reaches the gathered states, so every rank runs the
+        # all-gathers' backward (a collective) together
+        h_in = torch.where(torch.tensor(d == me, device=run.device), run,
+                           h_in)
+        run = dg[d][:, :, None, None] * run + sg[d]
+    Ch = C.repeat_interleave(n_heads // g, dim=2).float()
+    y_corr = torch.einsum("bshn,bsh,bhnp->bshp", Ch, torch.exp(cs), h_in)
+    y = y0 + y_corr.to(y0.dtype)
+    y = y + p["D"].to(cd)[None, None, :, None] * x
+    y = y.reshape(b, s, d_inner)
+    y = L.rmsnorm_apply(p["gn"], y * _silu(z), cfg.norm_eps)
+    out = L.dense_apply(p["out_proj"], y, compute_dtype=cd)
+    # the global conv tail is the last rank's: masked, then summed
+    last = me == nsh - 1
+    tails = {k: M.psum(t if last else torch.zeros_like(t), mesh, axis)
+             for k, t in tails.items()}
+    return out, {"ssm": run, "conv": tails}
 
 
 def mamba_decode(p, xin, conv_state, ssm_state, cfg, *,

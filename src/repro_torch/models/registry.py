@@ -18,9 +18,14 @@ configs (``nemotron-4-340b`` included) are counted without allocating.
 ``long_*`` decode shapes pass ``window=cfg.sliding_window`` to the hybrid
 family, as in the reference.
 
-Meshes, sequence parallelism and split-KV decoding belong with the
-distributed half of ROADMAP A10 and raise
-``NotImplementedError``.
+Over a mesh (``launch.mesh``) every step runs on every rank.  The
+training step's parameters and Adam moments are DTensors placed by
+``launch.sharding.param_pspecs`` / ``opt_pspecs``; the serving steps take
+DTensors or whole tensors.  Each DTensor leaf is gathered at use.  The
+training step takes the global batch and computes on the rank's rows of
+it; the serving steps take the rank's blocks of their batch and cache
+(``sharding.local_block`` under ``batch_pspecs`` / ``cache_pspecs``) and
+return the rank's blocks.
 """
 from __future__ import annotations
 
@@ -30,19 +35,25 @@ import torch
 
 from repro_torch.compress.tree import dequantize_tree
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.device import MULTI_DEVICE
+from repro_torch.launch import mesh as M
 from repro_torch.pytree import tree_leaves, tree_map
 from repro_torch.train import optimizer as opt_mod
 from . import layers as L
 from . import transformer as T
 
 
-def _no_mesh(mesh=None, seq_parallel: bool = False,
-             splitkv: bool = False) -> None:
-    if mesh is not None or seq_parallel or splitkv:
-        raise NotImplementedError(
-            f"meshes, sequence parallelism and split-KV decoding "
-            f"{MULTI_DEVICE}")
+def _need_mesh(mesh, **flags) -> None:
+    on = [k for k, v in flags.items() if v]
+    if on and mesh is None:
+        raise ValueError(f"{' and '.join(on)} run over a mesh's model axis: "
+                         "pass mesh=")
+
+
+def _gathered(tree):
+    """Each DTensor leaf gathered whole; other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
 
 
 def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
@@ -73,8 +84,11 @@ def make_train_step(cfg: ModelConfig, acfg: opt_mod.AdamConfig, mesh=None,
     ``optimizer.update``, which writes the given parameters and state in
     place (the reference's jitted step donates both).  ``metrics``: the
     loss and the loss's own metrics, ``grad_norm`` and ``lr``, as 0-dim
-    tensors on the parameters' device."""
-    _no_mesh(mesh, seq_parallel)
+    tensors on the parameters' device.  With a ``mesh``, see
+    :func:`_sharded_train_step`."""
+    _need_mesh(mesh, seq_parallel=seq_parallel)
+    if mesh is not None:
+        return _sharded_train_step(cfg, acfg, mesh, seq_parallel)
 
     def train_step(params, opt_state, batch):
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -85,9 +99,63 @@ def make_train_step(cfg: ModelConfig, acfg: opt_mod.AdamConfig, mesh=None,
         del live, leaves
         params, opt_state, om = opt_mod.update(params, grads, opt_state,
                                                acfg)
-        return params, opt_state, {"loss": loss.detach(),
-                                   **{k: v.detach()
-                                      for k, v in metrics.items()}, **om}
+        return params, opt_state, _metrics(loss, metrics, om)
+    return train_step
+
+
+def _metrics(loss, metrics, om):
+    return {"loss": loss.detach(),
+            **{k: v.detach() for k, v in metrics.items()}, **om}
+
+
+def _sharded_train_step(cfg, acfg, mesh, seq_parallel):
+    """The training step over ``mesh``, on every rank.  ``params`` and
+    ``opt_state`` are DTensors (``launch.sharding.distribute`` under
+    ``param_pspecs`` / ``opt_pspecs``); ``batch`` is the global batch, of
+    which the rank takes its rows (split over the batch axes).  Each
+    parameter is gathered at use (``full_tensor``), and its gradient
+    comes back reduce-scattered to the parameter's own blocks: every
+    rank's loss is the global one, so the ranks' gradients of
+    loss / ranks sum to its gradient.  Each rank's Adam then updates its
+    own blocks, with the gradient norm over every rank's (each replicated
+    block counted once)."""
+    from torch.distributed.tensor import DTensor, Partial
+    from repro_torch.launch.sharding import P, local_block
+
+    names = M.mesh_shape(mesh).axis_names
+    ranks = M.axis_size(mesh, names)
+    partial = [Partial()] * len(names)
+    rows = P(M.batch_axes(mesh) or None)
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def copies(t):          # the ranks that hold each block of t
+        return math.prod(M.axis_size(mesh, n) for n, pl in
+                         zip(names, t.placements) if pl.is_replicate())
+
+    def train_step(params, opt_state, batch):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        full = tree_map(lambda t: t.full_tensor(grad_placements=partial),
+                        live)
+        mine = {k: local_block(v, mesh, rows) for k, v in batch.items()}
+        loss, metrics = T.train_loss(cfg, full, mine, mesh=mesh,
+                                     seq_parallel=seq_parallel)
+        leaves = list(tree_leaves(live))
+        # a leaf the step leaves unused (the reference's Megatron-SP body
+        # reads only the "w" leaves) has a zero gradient, as under jax.grad
+        grads = iter(torch.autograd.grad(loss / ranks, leaves,
+                                         materialize_grads=True))
+        grads = tree_map(lambda _: local(next(grads)), live)
+        del live, full, leaves
+        with torch.no_grad():
+            sq = sum(torch.sum(torch.square(g.float())) / copies(p)
+                     for g, p in zip(tree_leaves(grads), tree_leaves(params)))
+            gnorm = torch.sqrt(M.psum(sq, mesh, names))
+        _, _, om = opt_mod.apply_update(tree_map(local, params), grads,
+                                        tree_map(local, opt_state), acfg,
+                                        gnorm)
+        return params, opt_state, _metrics(loss, metrics, om)
     return train_step
 
 
@@ -129,23 +197,26 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
     """An encoder's prefill is its forward pass: (params, batch) ->
     logits (the audio family's serving entry point).  Otherwise
     (params, batch) -> (logits, cache)."""
-    _no_mesh(mesh, seq_parallel)
+    _need_mesh(mesh, seq_parallel=seq_parallel)
     window = _window_for(cfg, shape) if shape else None
 
     def prefill_step(params, batch):
+        params = _gathered(params)
         if cfg.is_encoder:
             return T.forward(cfg, params, batch, window=window)[0]
-        return T.prefill(cfg, params, batch, window=window)
+        return T.prefill(cfg, params, batch, window=window, mesh=mesh,
+                         seq_parallel=seq_parallel)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
                      mesh=None, splitkv: bool = False):
-    _no_mesh(mesh, splitkv=splitkv)
+    _need_mesh(mesh, splitkv=splitkv)
     window = _window_for(cfg, shape) if shape else None
 
     def decode_step(params, cache, tokens):
-        return T.decode_step(cfg, params, cache, tokens, window=window)
+        return T.decode_step(cfg, _gathered(params), cache, tokens,
+                             window=window, mesh=mesh, splitkv=splitkv)
     return decode_step
 
 
@@ -171,12 +242,13 @@ def make_decode_step_quantized(cfg: ModelConfig,
                                splitkv: bool = False):
     """Decode over int-quantized weights: the tree is dequantized to
     bfloat16 each call (``compress.tree.dequantize_tree``)."""
-    _no_mesh(mesh, splitkv=splitkv)
+    _need_mesh(mesh, splitkv=splitkv)
     window = _window_for(cfg, shape) if shape else None
 
     def decode_step(qparams, scales, cache, tokens):
         params = dequantize_tree(qparams, scales)
-        return T.decode_step(cfg, params, cache, tokens, window=window)
+        return T.decode_step(cfg, params, cache, tokens, window=window,
+                             mesh=mesh, splitkv=splitkv)
     return decode_step
 
 

@@ -36,8 +36,16 @@ patch positions too: its fill level counts them.  Decode writes the cache
 tensors in place and returns the cache dict; an inactive slot keeps its
 cache rows and ``pos`` bit for bit.
 
-Sequence parallelism and meshes belong with the distributed half of
-ROADMAP A10 and raise.
+Over a mesh (``launch.mesh``) every function runs on every rank, on the
+rank's batch rows (the batch split over ``pod`` x ``data``) with the
+whole parameter tree, and computes along ``model`` where the reference's
+explicit ``shard_map`` regions do: the vocab-parallel cross-entropy
+(``losses.vocab_parallel_ce``), sequence parallelism
+(``seq_parallel=True``: Megatron-SP over the dense blocks,
+context-parallel SSD over the mamba blocks, the hybrid's shared block on
+the gathered sequence) and split-KV decoding (``splitkv=True``).
+Elsewhere the compute along ``model`` is replicated, where the reference
+lets GSPMD partition it (ROADMAP C, divergences).
 """
 from __future__ import annotations
 
@@ -45,8 +53,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.device import MULTI_DEVICE, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.pytree import tree_map
 from . import attention as A
 from . import layers as L
@@ -216,12 +225,16 @@ def _remat(cfg, train: bool, fn, *args):
 
 
 def _stacked_forward(cfg, params, x, positions, *, window=None,
-                     train: bool = False):
+                     train: bool = False, mesh=None, seq_parallel=False):
     """Every block in turn.  Returns (x, aux, caches): K/V stacked as (L,
     B, S, KV, hd) (dense; (n_groups, ...) for the hybrid's shared block),
     SSM states as (L, B, H, N, P) and conv tails as (L, B, 3, width).
     ``train``: no caches (``None``), mamba scans by ``ssd_chunked`` and
-    ``cfg.remat`` honoured."""
+    ``cfg.remat`` honoured.  ``seq_parallel``: see
+    :func:`_seq_parallel_forward`."""
+    if seq_parallel:
+        return _seq_parallel_forward(cfg, mesh, params, x, positions,
+                                     window=window, train=train)
     aux = _zero_aux(x.device)
     ks, vs = [], []
     blocks = _layers(params["blocks"], cfg.num_layers)
@@ -257,11 +270,137 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
     return x, aux, caches
 
 
-def backbone(cfg, params, batch, *, window=None, train: bool = False):
+# ---------------------------------------------------------------------------
+# Sequence parallelism over a mesh's ``model`` axis
+# ---------------------------------------------------------------------------
+
+def _seq_span(x, mesh):
+    """This rank's span of the sequence (dim 1), split over ``model``."""
+    s_loc = x.shape[1] // mesh_lib.tp_size(mesh)
+    return x.narrow(1, mesh_lib.axis_index(mesh, "model") * s_loc, s_loc)
+
+
+def _sp_dense_block(cfg, mesh, bp, x):
+    """One dense block under Megatron-style sequence parallelism (the
+    reference's ``_seq_scan_dense`` body): the residual stream ``x`` (B,
+    S_loc, D) is this rank's span, so norms and residuals stay local; the
+    attention (this rank's heads; its KV heads when they divide the axis,
+    else every KV head, each query head taking its group's) and the MLP
+    (this rank's d_ff columns) run over the all-gathered sequence, and
+    their partial outputs are reduce-scattered back to spans.  The
+    weights' ``w`` leaves only, sliced by rank, as the reference's
+    in-specs cut them."""
+    tp, me = mesh_lib.tp_size(mesh), mesh_lib.axis_index(mesh, "model")
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h_loc = H // tp
+    cd = cfg.cdtype
+    b, s_loc, _ = x.shape
+    s = s_loc * tp
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+
+    def cols(w, n):                 # this rank's block of n columns a rank
+        return w[:, me * n:(me + 1) * n].to(cd)
+
+    # attention: this rank's heads over the whole sequence
+    g = mesh_lib.all_gather(L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps),
+                            mesh, "model", 1).to(cd)
+    a = bp["attn"]
+    q = (g @ cols(a["q"]["w"], h_loc * hd)).reshape(b, s, h_loc, hd)
+    if KV % tp == 0:
+        kv_loc = KV // tp
+        k = (g @ cols(a["k"]["w"], kv_loc * hd)).reshape(b, s, kv_loc, hd)
+        v = (g @ cols(a["v"]["w"], kv_loc * hd)).reshape(b, s, kv_loc, hd)
+        rep = h_loc // kv_loc
+    else:                           # every KV head, one per local q head
+        k = (g @ a["k"]["w"].to(cd)).reshape(b, s, KV, hd)
+        v = (g @ a["v"]["w"].to(cd)).reshape(b, s, KV, hd)
+        kv_idx = (me * h_loc + torch.arange(h_loc, device=x.device)) \
+            * KV // H
+        k, v = k[:, :, kv_idx], v[:, :, kv_idx]
+        rep = 1
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = A.chunked_attention(q, A._repeat_kv(k, rep), A._repeat_kv(v, rep),
+                            cfg.causal, None)
+    wo = a["o"]["w"][me * h_loc * hd:(me + 1) * h_loc * hd].to(cd)
+    part = o.reshape(b, s, h_loc * hd) @ wo
+    x = x + mesh_lib.psum_scatter(part, mesh, "model", 1).to(x.dtype)
+    # MLP: this rank's d_ff columns over the whole sequence
+    m = bp["mlp"]
+    g2 = mesh_lib.all_gather(L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps),
+                             mesh, "model", 1).to(cd)
+    f_loc = m["w_in"]["w"].shape[1] // tp
+    hmid = g2 @ cols(m["w_in"]["w"], f_loc)
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        act = torch.nn.functional.silu if cfg.mlp_kind == "swiglu" \
+            else L._gelu
+        hmid = act(g2 @ cols(m["w_gate"]["w"], f_loc)) * hmid
+    elif cfg.mlp_kind == "relu2":
+        hmid = torch.square(torch.relu(hmid))
+    else:
+        hmid = L._gelu(hmid)
+    part = hmid @ m["w_out"]["w"][me * f_loc:(me + 1) * f_loc].to(cd)
+    return x + mesh_lib.psum_scatter(part, mesh, "model", 1).to(x.dtype)
+
+
+def _sp_mamba_block(cfg, mesh, bp, x):
+    """One mamba block over this rank's span (``mamba2.mamba_apply_seq``,
+    the reference's ``_seq_scan_mamba`` body)."""
+    y, st = S.mamba_apply_seq(bp["mamba"],
+                              L.rmsnorm_apply(bp["ln"], x, cfg.norm_eps),
+                              cfg, mesh=mesh, chunk=cfg.ssd_chunk,
+                              compute_dtype=cfg.cdtype)
+    return x + y, st
+
+
+def _seq_parallel_forward(cfg, mesh, params, x, positions, *, window=None,
+                          train: bool = False):
+    """The blocks with the sequence split over ``model``: each rank keeps
+    its span of the residual stream through every dense block (Megatron
+    SP) or mamba block (context-parallel SSD); the hybrid's shared block
+    runs on the gathered sequence and each rank keeps its span of its
+    output.  Returns the whole sequence (gathered) and, unless ``train``,
+    the caches: the mamba states are global, the shared block's K/V cover
+    the sequence, and the dense blocks keep no K/V (``None``, as the
+    reference's ``_seq_scan_dense`` returns)."""
+    aux = _zero_aux(x.device)
+    x = _seq_span(x, mesh)
+    blocks = _layers(params["blocks"], cfg.num_layers)
+    if not cfg.uses_mamba:
+        for bp in blocks:
+            x = _remat(cfg, train, lambda x, bp=bp: _sp_dense_block(
+                cfg, mesh, bp, x), x)
+        x = mesh_lib.all_gather(x, mesh, "model", 1)
+        return x, aux, (None if train else {"k": None, "v": None})
+    states, ks, vs = [], [], []
+    for i, bp in enumerate(blocks):
+        x, st = _remat(cfg, train, lambda x, bp=bp: _sp_mamba_block(
+            cfg, mesh, bp, x), x)
+        states.append(st)
+        if _shared_after(cfg, i):
+            full = mesh_lib.all_gather(x, mesh, "model", 1)
+            full, (k, v) = _remat(cfg, train, lambda x: _shared_block(
+                cfg, params["shared"], x, positions, window=window), full)
+            x = _seq_span(full, mesh)
+            ks.append(k)
+            vs.append(v)
+    x = mesh_lib.all_gather(x, mesh, "model", 1)
+    if train:
+        return x, aux, None
+    caches = _stack(states)
+    if cfg.family == "hybrid":
+        caches["k"] = torch.stack(ks) if ks else None
+        caches["v"] = torch.stack(vs) if vs else None
+    return x, aux, caches
+
+
+def backbone(cfg, params, batch, *, window=None, train: bool = False,
+             mesh=None, seq_parallel=False):
     """-> (final normed hidden states, aux, caches, text offset)."""
     x, positions, off = _embed_inputs(cfg, params, batch)
     x, aux, caches = _stacked_forward(cfg, params, x, positions,
-                                      window=window, train=train)
+                                      window=window, train=train, mesh=mesh,
+                                      seq_parallel=seq_parallel)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return x, aux, caches, off
 
@@ -279,10 +418,12 @@ def _logits(cfg, params, x, off: int = 0):
     return L.unembed_apply(params["embed"], x, cfg.cdtype)
 
 
-def forward(cfg, params, batch, *, window=None, emit_caches=False):
+def forward(cfg, params, batch, *, window=None, emit_caches=False,
+            mesh=None, seq_parallel=False):
     """-> (logits float32, aux, caches or None); a vlm's logits cover its
     text positions only."""
-    x, aux, caches, off = backbone(cfg, params, batch, window=window)
+    x, aux, caches, off = backbone(cfg, params, batch, window=window,
+                                   mesh=mesh, seq_parallel=seq_parallel)
     return (_logits(cfg, params, x, off), aux,
             (caches if emit_caches else None))
 
@@ -292,23 +433,31 @@ def train_loss(cfg, params, batch, mesh=None, seq_parallel=False):
     the mean cross-entropy of ``batch["labels"]`` over the text positions
     (a vlm's logits start after its patches; audio's head has a bias),
     plus ``aux_loss_weight`` times the MoE router losses (zero for the
-    other families).  Meshes and sequence parallelism raise."""
-    if mesh is not None or seq_parallel:
-        raise NotImplementedError(f"train_loss over a mesh or with "
-                                  f"sequence parallelism {MULTI_DEVICE}")
-    x, aux, _, off = backbone(cfg, params, batch, train=True)
+    other families).  Over a mesh the batch is the rank's rows and every
+    rank returns the global batch's loss: vocab-parallel over ``model``
+    (the plain head on the rank's rows for audio and, as in the reference,
+    under the mamba families' sequence parallelism, whose vocab stays
+    whole), the MoE router losses averaged over the batch axes (the mean
+    of the shards' losses: ROADMAP C, divergences)."""
+    x, aux, _, off = backbone(cfg, params, batch, train=True, mesh=mesh,
+                              seq_parallel=seq_parallel)
     if off:
         x = x[:, off:]
-    if cfg.family == "audio":
-        logits = L.dense_apply(params["lm_head"], x,
-                               compute_dtype=cfg.cdtype).float()
-        loss = losses.plain_ce(logits, batch["labels"], cfg.z_loss)
+    if cfg.family == "audio" or (seq_parallel and cfg.uses_mamba):
+        loss = losses.plain_ce(_logits(cfg, params, x), batch["labels"],
+                               cfg.z_loss)
+        if mesh is not None:
+            loss = mesh_lib.pmean(loss, mesh, mesh_lib.batch_axes(mesh))
     else:
         tied = cfg.tie_embeddings
         w = params["embed"]["table"] if tied else params["lm_head"]["w"]
-        loss = losses.vocab_parallel_ce(x, w, batch["labels"], tied=tied,
-                                        z_loss=cfg.z_loss,
+        loss = losses.vocab_parallel_ce(x, w, batch["labels"], mesh=mesh,
+                                        tied=tied, z_loss=cfg.z_loss,
                                         compute_dtype=cfg.cdtype)
+    if mesh is not None and cfg.family == "moe":
+        baxes = mesh_lib.batch_axes(mesh)
+        aux = {k: (mesh_lib.psum if k == "dropped" else mesh_lib.pmean)(
+            v, mesh, baxes) for k, v in aux.items()}
     total = loss + cfg.aux_loss_weight * (aux["aux_loss"]
                                           + aux["router_z_loss"])
     return total, {"ce": loss, **aux}
@@ -374,11 +523,13 @@ def _write_caches(cache, caches, rows: slice, s: int) -> None:
             cache["conv"][name][:, rows] = t.to(cache["conv"][name].dtype)
 
 
-def prefill(cfg, params, batch, max_len: int | None = None, *, window=None):
+def prefill(cfg, params, batch, max_len: int | None = None, *, window=None,
+            mesh=None, seq_parallel=False):
     """Full-sequence forward emitting caches sized to ``max_len``; the
     fill level counts a vlm's patch positions."""
     logits, _, caches = forward(cfg, params, batch, window=window,
-                                emit_caches=True)
+                                emit_caches=True, mesh=mesh,
+                                seq_parallel=seq_parallel)
     b = logits.shape[0]
     s = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[1]
     if cfg.family == "vlm":
@@ -430,18 +581,30 @@ def _decode_blocks(cfg, params, cache, x, attend, active=None):
     return L.rmsnorm_apply(params["final_norm"], x, eps)
 
 
-def decode_step(cfg, params, cache, tokens, *, window=None):
+def decode_step(cfg, params, cache, tokens, *, window=None, mesh=None,
+                splitkv=False):
     """tokens: (B, 1) -> (logits (B, 1, V) float32, cache).  The new K/V,
     SSM states and conv tails land in the cache tensors in place; ``len``
     advances by one.  A vlm decodes as ``dense``; audio, an encoder, has
-    no decode path and raises ``ValueError``."""
+    no decode path and raises ``ValueError``.  ``splitkv`` (with a mesh):
+    the K/V cache holds this rank's span of the sequence, and the
+    attention layers decode by ``attention.attn_decode_splitkv`` (the
+    attention families; the hybrid's shared block decodes whole, as in
+    the reference)."""
     if cfg.family == "audio":
         raise ValueError(f"no decode path for family {cfg.family!r}")
     clen = cache["len"]
     x = L.embed_apply(params["embed"], tokens, cfg.cdtype)
-    x = _decode_blocks(cfg, params, cache, x, lambda p, h, ck, cv:
-                       A.attn_decode(p, h, ck, cv, clen, cfg, window=window,
-                                     compute_dtype=cfg.cdtype))
+    if splitkv and not cfg.uses_mamba:
+        def attend(p, h, ck, cv):
+            return A.attn_decode_splitkv(p, h, ck, cv, clen, cfg, mesh=mesh,
+                                         window=window,
+                                         compute_dtype=cfg.cdtype)
+    else:
+        def attend(p, h, ck, cv):
+            return A.attn_decode(p, h, ck, cv, clen, cfg, window=window,
+                                 compute_dtype=cfg.cdtype)
+    x = _decode_blocks(cfg, params, cache, x, attend)
     return _logits(cfg, params, x), dict(cache, len=clen + 1)
 
 

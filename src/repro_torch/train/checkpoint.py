@@ -25,11 +25,19 @@ exactly.  (The reference's own ``restore`` cannot read such a leaf:
 ``restore`` takes a tree of tensors, or of ``meta`` stand-ins
 (``models.registry.abstract_params``), as the reference takes
 ``ShapeDtypeStruct``s; each leaf lands on ``device`` (default: the given
-leaf's own device; a ``meta`` leaf needs ``device``).  Restoring with
-``shardings`` is ROADMAP A10's distributed half and raises.
+leaf's own device; a ``meta`` leaf needs ``device``).
+
+Elastic resharding, as in the reference: the files hold full logical
+arrays, so a tree sharded over one mesh restores onto another.  ``save``
+of a tree with DTensor leaves is called on every rank: each leaf is
+gathered whole and rank 0 writes it.  ``restore`` with ``shardings`` (a
+matching tree of ``launch.sharding.NamedSharding``) gives each rank a
+DTensor holding its own block of each leaf; a DTensor in ``like_tree``
+restores onto its own mesh and placements.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -37,8 +45,10 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.device import MULTI_DEVICE, resolve_device
+from repro_torch.device import resolve_device
 
 _BF16_DESCR = np.dtype("V2")
 # the default home of checkpoints: the package's build directory, which
@@ -70,26 +80,38 @@ def _dtype_name(t: torch.Tensor) -> str:
 def save(directory: str, step: int, tree, metadata: dict | None = None,
          keep_last: int = 3) -> str:
     """Atomically persist ``tree`` (a nested dict of tensors) at
-    ``directory/step_<n>``; returns that path."""
+    ``directory/step_<n>``; returns that path.  A tree with DTensor leaves
+    is saved by every rank together (see the module docstring)."""
+    sharded = any(isinstance(t, DTensor) for _, t in _flatten(tree))
+    writer = not sharded or dist.get_rank() == 0
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
     leaves = {}
-    with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), mode="w",
-                         compression=zipfile.ZIP_STORED,
-                         allowZip64=True) as zf:
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
+        zf = zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), mode="w",
+                             compression=zipfile.ZIP_STORED, allowZip64=True)
+    with zf if writer else contextlib.nullcontext():
         for key, t in _flatten(tree):
+            if isinstance(t, DTensor):
+                t = t.full_tensor()
+            if not writer:
+                continue
             leaves[key] = {"shape": list(t.shape), "dtype": _dtype_name(t)}
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, _to_numpy(t),
                                           allow_pickle=False)
-    manifest = {"step": step, "leaves": leaves, "metadata": metadata or {}}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    _gc(directory, keep_last)
+    if writer:
+        manifest = {"step": step, "leaves": leaves,
+                    "metadata": metadata or {}}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _gc(directory, keep_last)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -125,10 +147,11 @@ def restore(directory: str, step: int, like_tree, shardings=None, *,
     """The checkpoint at ``step`` in the structure, shapes and dtypes of
     ``like_tree`` (tensors or ``meta`` stand-ins), each leaf cast to its
     like's dtype and placed on ``device`` or else on the like leaf's own
-    device.  A shape that differs raises ``ValueError``."""
-    if shardings is not None:
-        raise NotImplementedError(f"restore with shardings {MULTI_DEVICE}")
+    device (with ``shardings``: on the mesh's device, as a DTensor of this
+    rank's block).  A shape that differs raises ``ValueError``."""
+    from repro_torch.launch.sharding import local_block
     dev = None if device is None else resolve_device(device)
+    placed = dict(_flatten(shardings)) if shardings is not None else {}
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         recorded = json.load(f)["leaves"]
@@ -149,8 +172,28 @@ def restore(directory: str, step: int, like_tree, shardings=None, *,
                 raise ValueError(f"checkpoint leaf {key} shape {arr.shape} "
                                  f"!= expected {tuple(leaf.shape)}")
             t = _to_tensor(arr, recorded[key]["dtype"])
-            out[key] = t.to(device=leaf_device(key, leaf), dtype=leaf.dtype)
+            if isinstance(leaf, DTensor) and key not in placed:
+                # onto the like leaf's own mesh and placements
+                out[key] = distribute_tensor(
+                    t.to(device=dev or leaf.device, dtype=leaf.dtype),
+                    leaf.device_mesh, leaf.placements, src_data_rank=None)
+            elif key in placed:
+                sh = placed[key]
+                mdev = dev or _mesh_device(sh.mesh)
+                block = local_block(t, sh.mesh, sh.spec).to(
+                    device=mdev, dtype=leaf.dtype).contiguous()
+                out[key] = DTensor.from_local(block, sh.mesh, sh.placements,
+                                              run_check=False)
+            else:
+                out[key] = t.to(device=leaf_device(key, leaf),
+                                dtype=leaf.dtype)
     return _unflatten(like_tree, out)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def _unflatten(like_tree, flat: dict, path: str = ""):

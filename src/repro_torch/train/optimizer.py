@@ -20,6 +20,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.compression import (IHTConfig, apply_masks_tree,
                                           compute_masks_tree,
@@ -47,10 +48,15 @@ def schedule(cfg: AdamConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params, cfg: AdamConfig) -> dict:
-    """Zero moments in ``state_dtype`` on each parameter's device and an
-    int32 step counter; ``meta`` parameters give ``meta`` stand-ins."""
+    """Zero moments in ``state_dtype`` on each parameter's device (a
+    DTensor's with its placements) and an int32 step counter; ``meta``
+    parameters give ``meta`` stand-ins."""
     dt = getattr(torch, cfg.state_dtype)
-    z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    def z(p):               # a DTensor's moments take its placements
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=dt)
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
     first = next(tree_leaves(params))
     return {"m": tree_map(z, params), "v": tree_map(z, params),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
@@ -94,8 +100,15 @@ def update(params, grads, state, cfg: AdamConfig):
     """-> (new_params, new_state, {"grad_norm", "lr"}), the new trees being
     the given leaves, updated in place (see the module docstring)."""
     with torch.no_grad():
+        return apply_update(params, grads, state, cfg, global_norm(grads))
+
+
+def apply_update(params, grads, state, cfg: AdamConfig, gnorm):
+    """:func:`update` given the gradient's global norm ``gnorm``: a
+    sharded step updates each rank's own blocks with the norm over every
+    rank's (``models.registry.make_train_step``)."""
+    with torch.no_grad():
         step = state["step"] + 1
-        gnorm = global_norm(grads)
         scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
                  if cfg.grad_clip else 1.0)
         lr = schedule(cfg, state["step"])

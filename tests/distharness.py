@@ -1,0 +1,296 @@
+"""Spawned ``gloo`` process groups for the port's distributed tests (not a
+test module), and the body each rank runs.
+
+``run(body, world, tmp_path, *args)`` starts ``world`` processes (the
+``spawn`` start method), each joining a ``gloo`` group through a
+``file://`` rendezvous in ``tmp_path`` (so that parallel test workers
+never race for a port) with one intra-op thread, and calls
+``body(rank, world, tmp_path, *args)``; each rank's return value comes
+back through a file.  The whole run has ``TIMEOUT_S``: a hung collective
+fails its test and takes no more of the suite's clock.  The bodies
+import only ``torch`` and ``repro_torch``: the spawned processes start
+from a fresh import of this module.
+"""
+import contextlib
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 180
+F32 = dict(compute_dtype="float32", param_dtype="float32")
+
+
+def _entry(rank, world, tmp, body, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world)
+    try:
+        out = body(rank, world, tmp, *args)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    except BaseException:
+        with open(f"{tmp}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run(body, world: int, tmp_path, *args) -> list:
+    """``body`` on ``world`` ranks; returns each rank's result, in rank
+    order.  Raises ``AssertionError`` with the failing ranks' tracebacks,
+    or after TIMEOUT_S with every process stopped."""
+    tmp = str(tmp_path)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(r, world, tmp, body, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errs = [open(f"{tmp}/rank{r}.err").read() for r in range(world)
+            if os.path.exists(f"{tmp}/rank{r}.err")]
+    assert not hung, f"ranks {hung} still running after {TIMEOUT_S} s"
+    assert not errs and all(p.exitcode == 0 for p in procs), \
+        "\n".join(errs) or [p.exitcode for p in procs]
+    return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A ``gloo`` group of this process alone (a ``file://`` rendezvous in
+    ``tmp_path``) and its 1 x 1 (data, model) mesh, torn down after."""
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/one",
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh(data=1, model=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _full_tree(tree):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.pytree import tree_map
+    return tree_map(lambda t: _np(t.full_tensor() if isinstance(t, DTensor)
+                                  else t), tree)
+
+
+def _mesh(*shape, names=None):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+# ---------------------------------------------------------------------------
+# Rank bodies
+# ---------------------------------------------------------------------------
+
+def sharded_step(rank, world, tmp, np_params, batch, arch, over, modes):
+    """One ``make_train_step`` step over a (4, 2) mesh from the given
+    parameters, for each (seq_parallel, sharding mode) of ``modes``.
+    Returns [(full parameters, loss, grad_norm)] per mode."""
+    from repro_torch import configs as C
+    from repro_torch import weights
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt
+    cfg = C.reduced(C.get(arch), **F32, **over)
+    acfg = opt.AdamConfig(state_dtype="float32")
+    mesh = make_host_mesh(data=4, model=2)
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = []
+    for seq_parallel, mode in modes:
+        params = weights.lm_params_from_numpy(np_params, "cpu")
+        pspecs = sh.param_pspecs(params, mesh, mode=mode, cfg=cfg)
+        p = sh.distribute(params, sh.named(mesh, pspecs))
+        o = opt.init(p, acfg)
+        step = registry.make_train_step(cfg, acfg, mesh=mesh,
+                                        seq_parallel=seq_parallel)
+        p, o, m = step(p, o, b)
+        out.append((_full_tree(p), float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def compressed(rank, world, tmp, g):
+    """Each rank's row of ``g`` through ``compressed_psum`` over ``data``,
+    int8 and bf16.  Returns {bits: (mean, residual)}."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.grad_compression import compressed_psum
+    mesh = make_host_mesh(data=world, model=1)
+    mine = torch.from_numpy(g[rank:rank + 1])
+    return {bits: tuple(_np(t) for t in compressed_psum(
+        mine, "data", mesh=mesh, bits=bits)) for bits in (8, 16)}
+
+
+def vocab_ce(rank, world, tmp, x, w, y):
+    """``vocab_parallel_ce`` over a (2, 4) mesh on the rank's rows: the
+    loss with z-loss 1e-4, and the gradient of the loss without, summed
+    over the ranks over their count."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.sharding import P, local_block
+    from repro_torch.models import losses
+    mesh = M.make_host_mesh(data=2, model=4)
+    rows = P("data")
+    xl = local_block(torch.from_numpy(x), mesh, rows)
+    yl = local_block(torch.from_numpy(y), mesh, rows)
+    wt = torch.from_numpy(w)
+    loss = losses.vocab_parallel_ce(xl, wt, yl, mesh=mesh, tied=True,
+                                    z_loss=1e-4,
+                                    compute_dtype=torch.float32)
+    wl = wt.clone().requires_grad_()
+    l0 = losses.vocab_parallel_ce(xl, wl, yl, mesh=mesh, tied=True,
+                                  z_loss=0.0, compute_dtype=torch.float32)
+    g, = torch.autograd.grad(l0, [wl])
+    g = M.psum(g, mesh, ("data", "model")) / world
+    return float(loss), _np(g)
+
+
+def pipeline(rank, world, tmp, ws, x):
+    """``pipeline_apply`` of tanh(h @ W_s) over a 4-stage mesh."""
+    from repro_torch.train.pipeline import pipeline_apply
+    mesh = _mesh(world, names=("stage",))
+    out = pipeline_apply(lambda w, h: torch.tanh(h @ w),
+                         torch.from_numpy(ws[rank:rank + 1]),
+                         torch.from_numpy(x), mesh=mesh)
+    return _np(out)
+
+
+def reshard(rank, world, tmp):
+    """Save a tree sharded over a (4,) ``data`` mesh; restore it onto a
+    (2, 2) mesh.  Returns the restored leaf's placements, its local block
+    and its full value."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train import checkpoint as ckpt
+    tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8)}
+    mesh_a = _mesh(4, names=("data",))
+    tree_a = sh.distribute(tree, sh.named(mesh_a, {"w": sh.P("data", None)}))
+    ckpt.save(f"{tmp}/ckpt", 1, tree_a)
+    mesh_b = _mesh(2, 2, names=("data", "model"))
+    shard = sh.named(mesh_b, {"w": sh.P("data", "model")})
+    out = ckpt.restore(f"{tmp}/ckpt", 1, tree, shardings=shard)
+    return (out["w"].placements == shard["w"].placements,
+            _np(out["w"].to_local()), _np(out["w"].full_tensor()))
+
+
+def seq_parallel(rank, world, tmp, dense, splitkv, mamba):
+    """Over a (2, 4) mesh: Megatron-SP ``train_loss`` for each (kv heads,
+    parameters, batch) of ``dense``; split-KV decode of ``splitkv``
+    (parameters, tokens (2, 8)) over a 12-slot cache, 8 tokens; and the
+    mamba families' sequence-parallel ``train_loss`` and gradient norm
+    for each (arch, parameters, batch) of ``mamba``."""
+    from repro_torch import configs as C
+    from repro_torch import weights
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.sharding import P, local_block
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_leaves, tree_map
+    mesh = M.make_host_mesh(data=2, model=4)
+    rows = P("data")
+
+    def mine(batch):
+        return {k: local_block(torch.from_numpy(v), mesh, rows)
+                for k, v in batch.items()}
+    sp = []
+    for kv, np_params, batch in dense:
+        cfg = C.reduced(C.get("deepseek-7b"), **F32, num_heads=4,
+                        num_kv_heads=kv)
+        p = weights.lm_params_from_numpy(np_params, "cpu")
+        sp.append(float(T.train_loss(cfg, p, mine(batch), mesh=mesh,
+                                     seq_parallel=True)[0]))
+    np_params, toks = splitkv
+    cfg = C.reduced(C.get("minitron-4b"), **F32, num_heads=4, num_kv_heads=1)
+    p = weights.lm_params_from_numpy(np_params, "cpu")
+    full = T.init_cache(cfg, 2, 12, dtype=torch.float32, device="cpu")
+    cache = {"len": 0,
+             "k": local_block(full["k"], mesh, P(None, "data", "model")),
+             "v": local_block(full["v"], mesh, P(None, "data", "model"))}
+    tl = local_block(torch.from_numpy(toks), mesh, rows)
+    logits = []
+    with torch.no_grad():
+        for t in range(8):
+            lg, cache = T.decode_step(cfg, p, cache, tl[:, t:t + 1],
+                                      mesh=mesh, splitkv=True)
+            logits.append(_np(lg[:, 0]))
+    ssm = []
+    for arch, np_params, batch in mamba:
+        cfg = C.reduced(C.get(arch), **F32)
+        live = tree_map(lambda t: t.requires_grad_(),
+                        weights.lm_params_from_numpy(np_params, "cpu"))
+        loss = T.train_loss(cfg, live, mine(batch), mesh=mesh,
+                            seq_parallel=True)[0]
+        leaves = list(tree_leaves(live))
+        grads = torch.autograd.grad(loss / world, leaves)
+        grads = [M.psum(g, mesh, ("data", "model")) for g in grads]
+        ssm.append((float(loss), [_np(g) for g in grads]))
+    return sp, np.stack(logits, 1), ssm
+
+
+def one_by_one(rank, world, tmp, arch, steps):
+    """A 1 x 1 mesh against no mesh: ``make_train_step`` over ``steps``
+    steps from one init (losses and parameters), and the split-KV decode
+    against the plain decode (logits)."""
+    from repro_torch import configs as C
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    cfg = C.reduced(C.get(arch), **F32)
+    acfg = opt.AdamConfig(state_dtype="float32")
+    mesh = make_host_mesh(data=1, model=1)
+    rng = np.random.default_rng(3)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
+                                    .astype(np.int32))
+                for k in ("tokens", "labels")} for _ in range(steps)]
+    runs = []
+    for m in (None, mesh):
+        p = registry.init(cfg, torch.Generator().manual_seed(0))
+        if m is not None:
+            p = sh.distribute(p, sh.named(m, sh.param_pspecs(p, m)))
+        o = opt.init(p, acfg)
+        step = registry.make_train_step(cfg, acfg, mesh=m)
+        losses = []
+        for b in batches:
+            p, o, met = step(p, o, b)
+            losses.append((_np(met["loss"]), _np(met["grad_norm"])))
+        runs.append((losses, _full_tree(p)))
+    p = registry.init(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 6))
+                            .astype(np.int32))
+    decs = []
+    for m in (None, mesh):
+        cache = T.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+        out = []
+        with torch.no_grad():
+            for t in range(6):
+                lg, cache = T.decode_step(cfg, p, cache, toks[:, t:t + 1],
+                                          mesh=m, splitkv=m is not None)
+                out.append(_np(lg))
+        decs.append(out)
+    return runs, decs
+
+
+def launcher(rank, world, tmp, argv, more):
+    """``launch.train.main`` on a host mesh of every rank, then again with
+    ``more`` arguments (which resumes from the first run's checkpoint)."""
+    from repro_torch.launch import train as launch_train
+    return [[h for h in launch_train.main(a) if "step" in h]
+            for a in (argv, argv + more)]

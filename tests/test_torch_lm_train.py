@@ -153,9 +153,15 @@ def test_launchers_refuse_what_they_cannot_run(tmp_path):
     with pytest.raises(SystemExit, match="encoder-only"):
         launch_serve.main(["--arch", "hubert-xlarge", "--reduced",
                            "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="distributed half of ROADMAP A10"):
+    with pytest.raises(ValueError, match="no process group"):
         launch_train.main(["--arch", "qwen2-1.5b", "--reduced", "--device",
                            "cpu", "--mesh", "16x16"])
+    import distharness
+    with distharness.one_rank_mesh(tmp_path):
+        with pytest.raises(ValueError, match="needs 256 ranks; the process "
+                                             "group has 1"):
+            launch_train.main(["--arch", "qwen2-1.5b", "--reduced",
+                               "--device", "cpu", "--mesh", "16x16"])
     with pytest.raises(SystemExit, match="patch"):
         launch_train.main(["--arch", "internvl2-76b", "--reduced",
                            "--device", "cpu"])

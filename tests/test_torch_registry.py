@@ -122,23 +122,59 @@ def test_full_config_parameter_counts_sane():
         assert lo <= n <= hi, (arch, n)
 
 
-def test_training_half_and_meshes_are_refused():
-    """The training half trains on one device; over a mesh or with
-    sequence parallelism it is refused, as are the serving steps'
-    meshes and split-KV decoding (the distributed half of A10)."""
+def test_training_half_and_meshes_are_refused(tmp_path):
+    """The training half on one device, and every step over a 1 x 1 mesh
+    (a one-rank ``gloo`` group): the train, prefill, decode and
+    quantized-decode steps give the no-mesh steps' outputs bit for bit
+    (split-KV decoding included), Megatron-SP prefill within 1e-5 (the
+    flash path's rounding); sequence parallelism and split-KV decoding
+    without a mesh are refused."""
+    import distharness
+    from repro_torch.launch import sharding as S
+    from repro_torch.train import optimizer as opt
     from repro_torch.train.optimizer import AdamConfig
-    cfg = C.reduced(C.get("qwen2-1.5b"))
+    cfg = C.reduced(C.get("qwen2-1.5b"), compute_dtype="float32",
+                    param_dtype="float32")
+    acfg = AdamConfig(state_dtype="float32")
     assert all_meta(R.abstract_opt(cfg, AdamConfig()))
-    assert callable(R.make_train_step(cfg, AdamConfig()))
-    for call in (lambda: R.make_train_step(cfg, AdamConfig(), mesh=object()),
-                 lambda: R.make_train_step(cfg, AdamConfig(),
-                                           seq_parallel=True),
-                 lambda: R.make_prefill_step(cfg, mesh=object()),
+    for call in (lambda: R.make_train_step(cfg, acfg, seq_parallel=True),
                  lambda: R.make_prefill_step(cfg, seq_parallel=True),
                  lambda: R.make_decode_step(cfg, splitkv=True),
-                 lambda: R.make_decode_step_quantized(cfg, mesh=object())):
-        with pytest.raises(NotImplementedError, match="A10"):
+                 lambda: R.make_decode_step_quantized(cfg, splitkv=True)):
+        with pytest.raises(ValueError, match="pass mesh="):
             call()
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    tok = batch["tokens"][:, :1]
+    with distharness.one_rank_mesh(tmp_path) as mesh:
+        outs = []
+        for m, sp in ((None, False), (mesh, False), (mesh, True)):
+            p = R.init(cfg, torch.Generator().manual_seed(0))
+            pre = R.make_prefill_step(cfg, mesh=m, seq_parallel=sp)(
+                p, {"tokens": batch["tokens"]})
+            logits = pre[0]
+            cache = T.prefill(cfg, p, {"tokens": batch["tokens"]},
+                              max_len=16)[1]
+            dec = R.make_decode_step(cfg, mesh=m, splitkv=m is not None)(
+                p, cache, tok)[0]
+            if m is not None:
+                p = S.distribute(p, S.named(m, S.param_pspecs(p, m)))
+            o = opt.init(p, acfg)
+            p, o, met = R.make_train_step(cfg, acfg, mesh=m,
+                                          seq_parallel=sp)(p, o, batch)
+            outs.append((logits, dec, met["loss"]))
+        for i, (logits, dec, loss) in enumerate(outs[1:]):
+            if i == 0:
+                assert torch.equal(logits, outs[0][0])
+                assert torch.equal(dec, outs[0][1])
+                assert torch.equal(loss, outs[0][2])
+            else:
+                torch.testing.assert_close(logits, outs[0][0], rtol=0,
+                                           atol=1e-5)
+                torch.testing.assert_close(loss, outs[0][2], rtol=0,
+                                           atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -326,8 +326,20 @@ def test_checkpoint_restores_reference_files_bitwise(tmp_path):
     assert ckpt.read_metadata(d, 3) == {"next_step": 3}
     with pytest.raises(ValueError, match="meta"):
         ckpt.restore(d, 3, meta)
-    with pytest.raises(NotImplementedError, match="distributed half of ROADMAP A10"):
-        ckpt.restore(d, 3, like, shardings=like)
+    import distharness
+    from repro_torch.launch import sharding as S
+    with distharness.one_rank_mesh(tmp_path) as mesh:
+        sh = S.named(mesh, {"params": {
+            "embed": {"table": S.P("model", None)},
+            "blocks": {"w": S.P("data", None)}},
+            "opt": {"step": S.P()}})
+        out = ckpt.restore(d, 3, like, shardings=sh)
+        table = out["params"]["embed"]["table"]
+        assert table.placements == sh["params"]["embed"]["table"].placements
+        assert np.array_equal(table.full_tensor().view(torch.int16).numpy(),
+                              np.asarray(jtree["params"]["embed"]["table"])
+                              .view(np.int16))
+        assert int(out["opt"]["step"].full_tensor()) == 7
 
 
 def test_reference_restores_port_files(tmp_path):

@@ -195,15 +195,27 @@ def test_cross_entropy_matches_reference(z_loss):
     assert abs(got - want) <= 1e-6 * abs(want)
 
 
-def test_meshes_are_refused():
+def test_meshes_are_refused(tmp_path):
+    """Over a 1 x 1 mesh (a one-rank ``gloo`` group) ``train_loss`` and
+    ``vocab_parallel_ce`` give the plain path's loss and gradient bit for
+    bit (each merge over one rank is the identity), and sequence
+    parallelism gives the loss within 1e-5 (the flash path's rounding)."""
+    import distharness
     cfg = C.reduced(C.get("qwen2-1.5b"), **F32)
     p = T.init(cfg, torch.Generator().manual_seed(0))
     b = {k: torch.from_numpy(v) for k, v in smoke_batch(cfg).items()}
-    for call in (lambda: T.train_loss(cfg, p, b, mesh=object()),
-                 lambda: T.train_loss(cfg, p, b, seq_parallel=True),
-                 lambda: losses.vocab_parallel_ce(
-                     torch.zeros(1, 2, 64), p["embed"]["table"],
-                     torch.zeros(1, 2, dtype=torch.int32), mesh=object(),
-                     tied=True)):
-        with pytest.raises(NotImplementedError, match="distributed half of ROADMAP A10"):
-            call()
+    want = T.train_loss(cfg, p, b)[0]
+    x = torch.randn(1, 2, 64, generator=torch.Generator().manual_seed(1))
+    y = torch.tensor([[3, 60]], dtype=torch.int32)
+    table = p["embed"]["table"]
+    with distharness.one_rank_mesh(tmp_path) as mesh:
+        assert torch.equal(T.train_loss(cfg, p, b, mesh=mesh)[0], want)
+        sp = T.train_loss(cfg, p, b, mesh=mesh, seq_parallel=True)[0]
+        assert abs(float(sp) - float(want)) < 1e-5
+        w = table.clone().requires_grad_()
+        got = losses.vocab_parallel_ce(x, w, y, mesh=mesh, tied=True)
+        gw, = torch.autograd.grad(got, [w])
+    w = table.clone().requires_grad_()
+    plain = losses.vocab_parallel_ce(x, w, y, tied=True)
+    gp, = torch.autograd.grad(plain, [w])
+    assert torch.equal(got, plain) and torch.equal(gw, gp)
