@@ -300,6 +300,29 @@ Phases (any failure exits non-zero; nothing is caught):
     the no-mesh step's; the split-KV decode of 4 tokens bitwise the plain
     decode's.
 
+21. The last modules, in at most about a minute.  (a) Energy, with no
+    other process of the script running: the idle card's draw over 2.5 s
+    (``core.energy.H100Power.from_card``), then K3 over 131,072 windows x
+    128 steps and K1 at S = 131,072 (200 launches a call) each in a loop
+    for 5 s under ``core.energy.sample_power`` (``nvidia-smi`` every 100
+    ms, the readings of each window's first second dropped, as
+    ``power.draw`` lags by about a second): J per window and per stream-step,
+    their marginal part above idle, beside the paper's MSP430 LUT build
+    (246.0 uJ per inference, 31.49 mJ per window), and
+    ``h100_energy_per_step``'s estimate for K3 from its bound; K1 and K3
+    launches counted apart from the kernels line's.  (b) The dry-run, in
+    child processes on the CPU (started after (a), run beside (c)):
+    ``python -m repro_torch.launch.dryrun --both-meshes`` on qwen2-1.5b
+    ``train_4k``, mamba2-780m ``long_500k`` and the split-KV qwen2-1.5b
+    ``decode_32k``: each record's roofline row, collective bytes, peak
+    bytes and ``fits_hbm``; fails on an ``error`` record.  (c) The
+    examples on the card, in child processes started together:
+    ``torch_serve_demo.py --shards 4`` and ``--arch qwen2-1.5b``,
+    ``torch_export_mcu.py --windows 48``, ``torch_streaming_har_demo.py
+    --streams 6 --slots 2 --epochs 2`` and ``torch_lm_train_demo.py
+    --steps 20``, each contract line checked (the LM's step-19 loss
+    below its step-0 loss).
+
 Phases 12 and 19 also print ``launch.roofline.Roofline.row()`` for the
 decode tick and the training step beside their measured times, with the
 weight bytes at the config's dtype and at what the port holds.
@@ -313,6 +336,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -428,6 +452,13 @@ MESH_DECODE = 4           # split-KV decode: tokens after an 8-token prompt
 MESH_TIMEOUT_S = 300
 MESH_DIR = os.path.join(SRC, "repro_torch", "_build", "chip_smoke_mesh")
 DETERMINISTIC_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG of phase 19 (c)
+ENERGY_SECONDS = 5.0      # phase 21 (a): each kernel's loop under sample_power
+ENERGY_K1_CALLS = 200     # K1 launches a sampled call (one sync each)
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("mamba2-780m", "long_500k"),
+                ("qwen2-1.5b", "decode_32k"))   # phase 21 (b), both meshes
+PHASE21_TIMEOUT_S = 300   # each child process of phase 21
+LM_DEMO_DIR = os.path.join(SRC, "repro_torch", "_build", "checkpoints",
+                           "lm_demo")
 SSM_TRAIN_LAYERS = 4      # phase 19 (d): mamba2-780m, 4 of 48 layers
 SSM_TRAIN_SEQ = 1_024
 
@@ -4190,6 +4221,215 @@ def train_path(torch, np, dev, card) -> dict:
     print(f"train path (phase 19) wall {time.perf_counter() - t0:.1f} s")
     return served
 
+# ---------------------------------------------------------------------------
+# phase 21: energy on the card, the dry-run, the examples
+# ---------------------------------------------------------------------------
+
+def start_dryruns() -> list:
+    """Phase 21 (b)'s child processes, one per cell, on the CPU."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--both-meshes"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cell in DRYRUN_CELLS]
+
+
+def finish_dryruns(procs) -> None:
+    """Each dry-run record's roofline row, collective bytes, peak bytes
+    and ``fits_hbm``; fails on an error record or a failed process."""
+    for (arch, shape), proc in procs:
+        out, err = proc.communicate(timeout=PHASE21_TIMEOUT_S)
+        recs = [json.loads(line) for line in out.splitlines()
+                if line.startswith("{")]
+        if proc.returncode != 0 or len(recs) != 2:
+            fail(f"dry-run {arch} {shape}: exit {proc.returncode}, "
+                 f"{len(recs)} records\n{out[-2000:]}\n{err[-2000:]}")
+        for r in recs:
+            if r["status"] != "ok":
+                fail(f"dry-run {arch} {shape} {r['mesh']}: {r['status']}: "
+                     f"{r.get('error') or r.get('reason')}")
+            roof = r["roofline"]
+            print(f"dry-run {arch} {shape} on {r['mesh']} ({r['chips']} "
+                  f"fake ranks, mode {r['parallel_mode']}, traced in "
+                  f"{r['trace_s']} s on the CPU): roofline compute "
+                  f"{roof['t_compute_s'] * 1e3:.3f} ms, memory "
+                  f"{roof['t_memory_s'] * 1e3:.3f} ms, collective "
+                  f"{roof['t_collective_s'] * 1e3:.3f} ms -> "
+                  f"{roof['bottleneck']}; collectives "
+                  f"{r['collective_counts']}, "
+                  f"{r['collective_bytes_per_device']:.0f} B a rank "
+                  f"{r['collective_bytes_by_kind']}; argument bytes "
+                  f"{r['memory']['argument_bytes']}, peak bytes "
+                  f"{r['memory']['peak_bytes']} (fits_hbm "
+                  f"{r['fits_hbm']}); traced FLOPs a rank "
+                  f"{r['traced']['flops_per_device']:.4e} against the "
+                  f"analytic {r['flops_per_device']:.4e}")
+
+
+def card_examples() -> list:
+    """(script, arguments, contract check) of phase 21 (c)."""
+    import re
+
+    def lines(*want):
+        return lambda out: [w for w in want if w not in out]
+
+    def export(out):
+        bad = [ln for ln in out.splitlines() if
+               (ln.startswith("  bitwise ") and not ln.endswith(": OK"))
+               or (ln.startswith("  argmax ") and not ln.endswith(": 1.0000"))]
+        n = sum(ln.startswith("  bitwise ") for ln in out.splitlines())
+        return bad + ([] if n >= 7 and "parity over 48 windows:" in out
+                      else [f"{n} bitwise lines"])
+
+    def lm(out):
+        m = re.search(r"^step 0 loss (\S+) -> step 19 loss (\S+)$", out,
+                      re.M)
+        first, last = (float(v) for v in m.groups()) if m else (0.0, 0.0)
+        return [] if math.isfinite(first) and last < first else [
+            "step 0 loss L0 -> step 19 loss L19 with L19 < L0"]
+    return [
+        ("torch_serve_demo.py", ["--shards", "4"], lines(
+            "bit-exactness vs scalar QRuntime: 100.0% (OK)",
+            "1 live migration(s)")),
+        ("torch_serve_demo.py", ["--arch", "qwen2-1.5b"], lines(
+            "generated 24 tokens x 4 sequences on cuda:0",
+            "bf16-vs-int8 token agreement: ", "quantized tree: ")),
+        ("torch_export_mcu.py", ["--windows", "48"], export),
+        ("torch_streaming_har_demo.py", ["--streams", "6", "--slots", "2",
+                                         "--epochs", "2"], lines(
+            "streaming-vs-offline scalar agreement: 6/6 (bit-exact "
+            "contract)")),
+        ("torch_lm_train_demo.py", ["--steps", "20"], lm),
+    ]
+
+
+def run_examples() -> None:
+    """Phase 21 (c): every card example in a process of its own, started
+    together; fails unless each exits 0 and prints its contract lines."""
+    shutil.rmtree(LM_DEMO_DIR, ignore_errors=True)   # a fresh run, not a resume
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = [(name, args, check, time.perf_counter(), subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", name), *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for name, args, check in card_examples()]
+    with stopped_on_failure([p[-1] for p in procs]):
+        check_examples(procs)
+    shutil.rmtree(LM_DEMO_DIR, ignore_errors=True)
+
+
+def check_examples(procs) -> None:
+    for name, args, check, t0, proc in procs:
+        out, err = proc.communicate(timeout=PHASE21_TIMEOUT_S)
+        what = f"{name} {' '.join(args)}"
+        if proc.returncode != 0:
+            fail(f"example {what}: exit {proc.returncode}\n{err[-3000:]}")
+        missing = check(out)
+        if missing:
+            fail(f"example {what}: contract not printed: {missing}\n"
+                 f"{out[-3000:]}")
+        keep = [ln for ln in out.splitlines() if ln.startswith((
+            "bit-exactness", "generated", "bf16-vs-int8", "quantized tree",
+            "parity over", "streaming-vs-offline", "step 0 loss", "fleet:"))]
+        argmax = [ln.strip() for ln in out.splitlines()
+                  if ln.startswith("  argmax ")]
+        print(f"example {what} on cuda ({time.perf_counter() - t0:.1f} s): "
+              + " | ".join(keep + argmax[:1]))
+
+
+def energy(torch, dev, card, sw, win_params, k3_bound_s) -> None:
+    """Phase 21 (a): the idle card, then K3 and K1 each under
+    ``sample_power``; J per window and per stream-step beside the
+    paper's MSP430 LUT build."""
+    from repro_torch.core import energy as en
+    from repro_torch.kernels.fastgrnn_cell.kernel import (WindowScan,
+                                                          make_fastgrnn_step)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    power = en.H100Power.from_card(dev)
+    print(f"energy ({card}): idle draw {power.idle_w:.2f} W over "
+          f"{en.IDLE_SECONDS} s, power limit {power.limit_w:.2f} W; each "
+          f"window's readings of its first {en.SETTLE_S} s dropped "
+          f"(power.draw lags by about a second), no other process of the "
+          f"script running")
+    paper = en.LUT_BUILD
+    scan = WindowScan(win_params, dev)
+    xs = torch.randn(W_STEPS, W_BATCH, sw.input_dim, generator=g, device=dev)
+    scan(xs)                               # built and warm before sampling
+    WindowScan.launches = 0
+    k3 = en.sample_power(lambda: scan(xs), dev, min_seconds=ENERGY_SECONDS)
+    windows = k3.calls * W_BATCH
+    j_win = k3.joules_per(windows)
+    j_win_marginal = k3.joules_per(windows, idle_w=power.idle_w)
+    step_s = k3.seconds / k3.calls
+    est = en.h100_energy_per_step(k3_bound_s, step_s, power) / W_BATCH
+    print(f"energy ({card}): K3 over {W_BATCH} windows x {W_STEPS} steps, "
+          f"{k3.calls} launches in {k3.seconds:.3f} s ({step_s * 1e3:.3f} ms "
+          f"a launch): mean draw {k3.mean_w:.2f} W (max {k3.max_w:.2f} W, "
+          f"{k3.samples} samples): {j_win * 1e6:.4f} uJ per window, "
+          f"{j_win_marginal * 1e6:.4f} uJ above idle; the paper's MSP430 "
+          f"LUT build {paper.e_window_mj:.2f} mJ per window: "
+          f"{paper.e_window_mj * 1e-3 / j_win:,.0f} x the card's "
+          f"({paper.e_window_mj * 1e-3 / j_win_marginal:,.0f} x above idle)")
+    print(f"energy ({card}): h100_energy_per_step for K3 from its bound "
+          f"{k3_bound_s * 1e6:.3f} us and the measured {step_s * 1e3:.3f} ms "
+          f"a launch (idle x time + (limit - idle) x bound): "
+          f"{est * 1e6:.4f} uJ per window estimated, against "
+          f"{j_win * 1e6:.4f} measured")
+    step = make_fastgrnn_step(sw, device=dev)
+    h = torch.randn(S_KERNEL, sw.hidden_dim, generator=g, device=dev) * 0.5
+    x = torch.randn(S_KERNEL, sw.input_dim, generator=g, device=dev)
+    mask = torch.ones(S_KERNEL, dtype=torch.bool, device=dev)
+    step(h, x, mask)
+    step.launches = 0
+
+    def k1_calls():
+        for _ in range(ENERGY_K1_CALLS):
+            step(h, x, mask)
+    k1 = en.sample_power(k1_calls, dev, min_seconds=ENERGY_SECONDS)
+    steps = k1.calls * ENERGY_K1_CALLS * S_KERNEL
+    j_step = k1.joules_per(steps)
+    j_step_marginal = k1.joules_per(steps, idle_w=power.idle_w)
+    print(f"energy ({card}): K1 at S={S_KERNEL}, {step.launches} launches "
+          f"in {k1.seconds:.3f} s ({k1.seconds / step.launches * 1e6:.3f} us "
+          f"a launch, one sync every {ENERGY_K1_CALLS}): mean draw "
+          f"{k1.mean_w:.2f} W (max {k1.max_w:.2f} W, {k1.samples} samples): "
+          f"{j_step * 1e9:.4f} nJ per stream-step, "
+          f"{j_step_marginal * 1e9:.4f} nJ above idle; the paper's MSP430 "
+          f"LUT build {paper.e_inference_uj:.1f} uJ per inference: "
+          f"{paper.e_inference_uj * 1e-6 / j_step:,.0f} x the card's "
+          f"({paper.e_inference_uj * 1e-6 / j_step_marginal:,.0f} x above "
+          f"idle)")
+    print(f"energy ({card}): phase 21 launches, apart from the kernels "
+          f"line: K3 {WindowScan.launches}, K1 {step.launches}")
+
+
+def last_modules(torch, dev, card, sw, win_params, k3_bound_s) -> None:
+    """Phase 21: (a) alone, so that no process of the script contends
+    with the sampled loops; then (b) on the CPU beside (c) on the card;
+    prints its wall."""
+    t0 = time.perf_counter()
+    energy(torch, dev, card, sw, win_params, k3_bound_s)
+    dry = start_dryruns()
+    with stopped_on_failure([p for _, p in dry]):
+        run_examples()
+        finish_dryruns(dry)
+    print(f"last modules (phase 21) wall {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def stopped_on_failure(procs):
+    """Kill and reap every process of ``procs`` still running if the body
+    fails, then let the failure through."""
+    try:
+        yield
+    except BaseException:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        raise
+
+
 def parse_args(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port's paths on one "
@@ -4250,6 +4490,7 @@ def main() -> int:
     del single
     failover(torch, np, dev, art, feeds)
     t = timing(torch, sw, art, args.parent)
+    win_params = art.require_qp().dequantize()
     del feeds, art
     lm = lm_path(torch, np, dev, card)
     torch.cuda.empty_cache()
@@ -4267,6 +4508,8 @@ def main() -> int:
     audio_path(torch, np, dev, card)
     train_path(torch, np, dev, card)
     mesh_check_apart()
+    last_modules(torch, dev, card, sw, win_params,
+                 t["fastgrnn_window"]["bound_ms"] * 1e-3)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s, the "
           f"kernels' build included")
     src = "src/repro/kernels/fastgrnn_cell/kernel.py"

@@ -11,10 +11,12 @@ all-reduce / reduce-scatter / all-to-all / collective-permute, the ops
 inside a while loop multiplied by its trip count).  A torch step makes no
 HLO, so the port keeps ``parse_collectives`` as a pure function over the
 reference's text format, equal to the reference's on the same strings,
-and a torch-side caller passes its own collective bytes (0 on one card:
-ROADMAP C, divergences).  ``Roofline``'s per-device terms are the
-reference's; only the three rates are the H100's in place of the TPU
-v5e's.
+and counts a step's collectives where they are issued:
+``launch/dryrun.py`` runs the step as rank 0 of a fake process group and
+sums the operand bytes of every c10d collective it dispatches, by the
+same kinds, into ``collective_bytes_per_device`` (one card: 0).
+``Roofline``'s per-device terms are the reference's; only the three
+rates are the H100's in place of the TPU v5e's.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ HBM_BYTES_PER_S = 3.35e12      # HBM3
 # 18 links, the rate a collective's payload leaves (or reaches) one card
 NVLINK_BYTES_PER_S = 450e9
 FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
+# the card's HBM3: 80 GiB, what a rank's step must fit in
+HBM_BYTES = 80 * 2**30
 # float32 instructions per second outside the tensor cores: the 67 TFLOP/s
 # count an FMA as two operations, so one instruction (an FMA, an add or a
 # multiply) issues at half that rate (132 SMs x 128 lanes x ~1.98 GHz).

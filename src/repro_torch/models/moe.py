@@ -100,10 +100,14 @@ def route(router: dict, xt: torch.Tensor, *, num_experts_global: int,
     gate_vals = (vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)).float()
 
     # aux losses (global-expert statistics, local tokens); integer counts,
-    # so no float atomics
+    # so no float atomics: each expert's count is the width of its run in
+    # the sorted expert ids (bincount's counts, with a shape that does not
+    # depend on the values)
     me = probs.mean(0)
-    ce = torch.bincount(gate_idx.reshape(-1),
-                        minlength=num_experts_global).double() / (n * top_k)
+    ids = torch.sort(gate_idx.reshape(-1)).values
+    edges = torch.searchsorted(ids, torch.arange(
+        num_experts_global + 1, dtype=ids.dtype, device=ids.device))
+    ce = (edges[1:] - edges[:-1]).double() / (n * top_k)
     aux_loss = (num_experts_global * (me * ce).sum()).float()
     z_loss = torch.logsumexp(logits, -1).square().mean().float()
 

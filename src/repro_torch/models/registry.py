@@ -209,15 +209,84 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
     return prefill_step
 
 
+def _model_dims(cfg, shape, mesh, splitkv: bool) -> dict:
+    """{cache key: dim} of each cache leaf whose ``cache_pspecs`` spec
+    splits a dimension over ``model`` that the decode must see whole: all
+    of them but the split-KV sequence of ``k`` / ``v`` (``conv``'s leaves
+    under ``conv.<name>``).  Empty without a mesh or a shape."""
+    if mesh is None or shape is None:
+        return {}
+    from repro_torch.launch.sharding import cache_pspecs
+
+    def flat(tree, pre=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{pre}{k}.")
+            else:
+                yield pre + k, v
+    out = {}
+    for key, spec in flat(cache_pspecs(cfg, shape, mesh,
+                                       abstract_cache(cfg, shape))):
+        if splitkv and key in ("k", "v"):
+            continue
+        dims = [d for d, e in enumerate(spec) if e == "model"]
+        if dims:
+            out[key] = dims[0]
+    return out
+
+
+def _sharded_decode(step, dims: dict, mesh):
+    """``step(params, cache, tokens)`` over a cache of this rank's blocks
+    (``launch.sharding.cache_pspecs``): each leaf of ``dims`` is gathered
+    whole along ``model`` before the step (the step computes every head,
+    as on its gathered parameters), and its block of the result is
+    written back into the given leaf, in place."""
+    if not dims:
+        return step
+
+    def get(tree, key):
+        for k in key.split("."):
+            tree = tree[k]
+        return tree
+
+    def put(tree, key, val):
+        ks = key.split(".")
+        for k in ks[:-1]:
+            tree = tree[k]
+        tree[ks[-1]] = val
+
+    def decode(params, cache, tokens):
+        whole = {k: (dict(v) if isinstance(v, dict) else v)
+                 for k, v in cache.items()}
+        for key, d in dims.items():
+            put(whole, key, M.all_gather(get(cache, key), mesh, "model", d))
+        logits, new = step(params, whole, tokens)
+        out = {k: (dict(v) if isinstance(v, dict) else v)
+               for k, v in new.items()}
+        for key, d in dims.items():
+            mine, full = get(cache, key), get(new, key)
+            n = mine.shape[d]
+            mine.copy_(full.narrow(d, M.axis_index(mesh, "model") * n, n))
+            put(out, key, mine)
+        return logits, out
+    return decode
+
+
 def make_decode_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
                      mesh=None, splitkv: bool = False):
+    """(params, cache, tokens) -> (logits, cache).  Over a mesh, with a
+    ``shape``, the cache holds this rank's blocks under
+    ``launch.sharding.cache_pspecs``: its rows, and along ``model`` the
+    split-KV sequence span when ``splitkv``; any other dimension split
+    over ``model`` is gathered whole for the step."""
     _need_mesh(mesh, splitkv=splitkv)
     window = _window_for(cfg, shape) if shape else None
 
     def decode_step(params, cache, tokens):
         return T.decode_step(cfg, _gathered(params), cache, tokens,
                              window=window, mesh=mesh, splitkv=splitkv)
-    return decode_step
+    return _sharded_decode(decode_step, _model_dims(cfg, shape, mesh,
+                                                    splitkv), mesh)
 
 
 def abstract_quantized_params(cfg: ModelConfig, bits: int = 8):
@@ -245,10 +314,14 @@ def make_decode_step_quantized(cfg: ModelConfig,
     _need_mesh(mesh, splitkv=splitkv)
     window = _window_for(cfg, shape) if shape else None
 
+    dims = _model_dims(cfg, shape, mesh, splitkv)
+
     def decode_step(qparams, scales, cache, tokens):
-        params = dequantize_tree(qparams, scales)
-        return T.decode_step(cfg, params, cache, tokens, window=window,
-                             mesh=mesh, splitkv=splitkv)
+        params = dequantize_tree(_gathered(qparams), _gathered(scales))
+        return _sharded_decode(
+            lambda p, c, t: T.decode_step(cfg, p, c, t, window=window,
+                                          mesh=mesh, splitkv=splitkv),
+            dims, mesh)(params, cache, tokens)
     return decode_step
 
 

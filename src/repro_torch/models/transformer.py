@@ -534,8 +534,8 @@ def prefill(cfg, params, batch, max_len: int | None = None, *, window=None,
     s = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[1]
     if cfg.family == "vlm":
         s += batch["patch_embeds"].shape[1]
-    cache = init_cache(cfg, b, max_len or s, dtype=cfg.cdtype,
-                       device=logits.device)
+    # on the logits' own device (already a resolved one)
+    cache = _cache(cfg, b, max_len or s, cfg.cdtype, logits.device)
     _write_caches(cache, caches, slice(None), s)
     cache["len"] = s
     return logits, cache

@@ -294,3 +294,84 @@ def launcher(rank, world, tmp, argv, more):
     from repro_torch.launch import train as launch_train
     return [[h for h in launch_train.main(a) if "step" in h]
             for a in (argv, argv + more)]
+
+
+def collectives(rank, world, tmp, arch, seq, batch):
+    """One reduced ``make_train_step`` step at seq x batch over a (2, 4)
+    (data, model) mesh, in the sharding mode the dry-run gives the cell,
+    under ``launch.dryrun.CollectiveCounter``.  Returns its log: (kind,
+    mesh axis, operand bytes) per collective."""
+    from repro_torch import configs as C
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.dryrun import CollectiveCounter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt
+    cfg = C.reduced(C.get(arch), **F32)
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    mesh = make_host_mesh(data=2, model=4)
+    mode = sh.parallel_mode(cfg, shape, mesh)
+    acfg = opt.AdamConfig(state_dtype=cfg.opt_state_dtype)
+    params = registry.init(cfg, torch.Generator().manual_seed(0))
+    p = sh.distribute(params, sh.named(
+        mesh, sh.param_pspecs(params, mesh, mode=mode, cfg=cfg)))
+    o = opt.init(p, acfg)
+    rng = np.random.default_rng(0)
+    b = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))
+                             .astype(np.int32)) for k in ("tokens", "labels")}
+    step = registry.make_train_step(cfg, acfg, mesh=mesh,
+                                    seq_parallel=mode is not None)
+    with CollectiveCounter(mesh) as counter:
+        step(p, o, b)
+    return counter.log
+
+
+def cache_decode(rank, world, tmp, np_params, arch, over, prompt, toks):
+    """``registry.make_decode_step(cfg, shape, mesh=...)`` over a (2, 4)
+    (data, model) mesh from the given parameters and a cache of the
+    rank's blocks under ``cache_pspecs`` (after a prefill of ``prompt``),
+    beside the no-mesh decode of the whole cache, one step a column of
+    ``toks``.  Returns the rank's batch rows; per step (the rank's
+    logits, the no-mesh logits of its rows); per cache leaf (the rank's
+    final block, the same block of the no-mesh cache); and whether the
+    fill levels agree."""
+    from repro_torch import configs as C
+    from repro_torch import weights
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_leaves, tree_map
+    cfg = C.reduced(C.get(arch), **F32, **over)
+    shape = ShapeConfig("decode_32k", 16, prompt.shape[0], "decode")
+    mesh = make_host_mesh(data=2, model=4)
+    params = weights.lm_params_from_numpy(np_params, "cpu")
+    prompt, toks = torch.from_numpy(prompt), torch.from_numpy(toks)
+    with torch.no_grad():
+        _, whole = T.prefill(cfg, params, {"tokens": prompt},
+                             max_len=shape.seq_len)
+    specs = sh.cache_pspecs(cfg, shape, mesh,
+                            registry.abstract_cache(cfg, shape))
+    mine = {k: v if k == "len" else tree_map(
+        lambda t, s: sh.local_block(t, mesh, s).clone(), v, specs[k])
+        for k, v in whole.items()}
+    rows = sh.batch_pspecs(cfg, shape, mesh)["tokens"]
+    my_rows = sh.local_block(torch.arange(prompt.shape[0])[:, None], mesh,
+                             rows)[:, 0]
+    on_mesh = registry.make_decode_step(
+        cfg, shape, mesh=mesh, splitkv=sh.use_splitkv(cfg, shape, mesh))
+    alone = registry.make_decode_step(cfg, shape)
+    logits = []
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            tok = toks[:, t:t + 1]
+            lg, mine = on_mesh(params, mine, sh.local_block(tok, mesh, rows))
+            lg1, whole = alone(params, whole, tok)
+            logits.append((_np(lg), _np(sh.local_block(lg1, mesh, rows))))
+    blocks = [(_np(a), _np(sh.local_block(b, mesh, s))) for a, b, s in zip(
+        tree_leaves({k: v for k, v in mine.items() if k != "len"}),
+        tree_leaves({k: v for k, v in whole.items() if k != "len"}),
+        tree_leaves({k: v for k, v in specs.items() if k != "len"}))]
+    return _np(my_rows), logits, blocks, mine["len"] == whole["len"]
