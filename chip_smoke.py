@@ -313,9 +313,12 @@ Phases (any failure exits non-zero; nothing is caught):
     launches counted apart from the kernels line's.  (b) The dry-run, in
     child processes on the CPU (started after (a), run beside (c)):
     ``python -m repro_torch.launch.dryrun --both-meshes`` on qwen2-1.5b
-    ``train_4k``, mamba2-780m ``long_500k`` and the split-KV qwen2-1.5b
-    ``decode_32k``: each record's roofline row, collective bytes, peak
-    bytes and ``fits_hbm``; fails on an ``error`` record.  (c) The
+    ``train_4k``, mamba2-780m ``long_500k``, the split-KV qwen2-1.5b
+    ``decode_32k`` and deepseek-7b ``decode_32k`` (its cache by KV heads,
+    202 / 105 GB a rank while every cache leaf was gathered whole): each
+    record's roofline row, collective bytes, peak bytes and
+    ``fits_hbm``; fails on an ``error`` record, and unless deepseek-7b's
+    two records fit.  (c) The
     examples on the card, in child processes started together:
     ``torch_serve_demo.py --shards 4`` and ``--arch qwen2-1.5b``,
     ``torch_export_mcu.py --windows 48``, ``torch_streaming_har_demo.py
@@ -455,7 +458,10 @@ DETERMINISTIC_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG of phase 19 (c)
 ENERGY_SECONDS = 5.0      # phase 21 (a): each kernel's loop under sample_power
 ENERGY_K1_CALLS = 200     # K1 launches a sampled call (one sync each)
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("mamba2-780m", "long_500k"),
-                ("qwen2-1.5b", "decode_32k"))   # phase 21 (b), both meshes
+                ("qwen2-1.5b", "decode_32k"),   # phase 21 (b), both meshes
+                ("deepseek-7b", "decode_32k"))
+# cells over 80 GiB a rank before the mesh path computed on a rank's blocks
+DRYRUN_MUST_FIT = (("deepseek-7b", "decode_32k"),)
 PHASE21_TIMEOUT_S = 300   # each child process of phase 21
 LM_DEMO_DIR = os.path.join(SRC, "repro_torch", "_build", "checkpoints",
                            "lm_demo")
@@ -4237,7 +4243,8 @@ def start_dryruns() -> list:
 
 def finish_dryruns(procs) -> None:
     """Each dry-run record's roofline row, collective bytes, peak bytes
-    and ``fits_hbm``; fails on an error record or a failed process."""
+    and ``fits_hbm``; fails on an error record or a failed process, or
+    when a cell of DRYRUN_MUST_FIT does not fit."""
     for (arch, shape), proc in procs:
         out, err = proc.communicate(timeout=PHASE21_TIMEOUT_S)
         recs = [json.loads(line) for line in out.splitlines()
@@ -4249,6 +4256,10 @@ def finish_dryruns(procs) -> None:
             if r["status"] != "ok":
                 fail(f"dry-run {arch} {shape} {r['mesh']}: {r['status']}: "
                      f"{r.get('error') or r.get('reason')}")
+            if (arch, shape) in DRYRUN_MUST_FIT and not r["fits_hbm"]:
+                fail(f"dry-run {arch} {shape} {r['mesh']}: peak bytes "
+                     f"{r['memory']['peak_bytes']} a rank, over the card's "
+                     f"80 GiB")
             roof = r["roofline"]
             print(f"dry-run {arch} {shape} on {r['mesh']} ({r['chips']} "
                   f"fake ranks, mode {r['parallel_mode']}, traced in "

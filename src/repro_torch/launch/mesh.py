@@ -6,7 +6,7 @@ Axes, as in the reference:
   * ``pod``   — pure data parallelism across pods (gradient all-reduce
                 only, compressible by ``train/grad_compression.py``);
   * ``data``  — the FSDP axis (parameters and optimizer state sharded,
-                gathered at use);
+                each layer's gathered at use, :func:`gather_layer`);
   * ``model`` — the tensor / sequence parallel axis.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` named with these
@@ -294,6 +294,37 @@ def psum_scatter(x, mesh, axis: str, dim: int):
     if axis_size(mesh, axis) == 1:
         return x
     return _ReduceScatter.apply(x, _group(mesh, axis), dim)
+
+
+def gather_layer(tree, specs, mesh, keep=("model",)):
+    """One layer's blocks, each leaf gathered along every dimension its
+    spec places on a mesh axis outside ``keep`` (the FSDP gather over
+    ``data``, the reference's ``gather_w``); the ``model`` blocks stay the
+    rank's own.  ``tree``: the rank's blocks of one layer (the stacked
+    leaves' ``[i]``), or unstacked leaves; ``specs``: the matching specs
+    of ``launch.sharding.param_pspecs`` (a stacked leaf's spec has the
+    layer dimension first, replicated), or None for blocks that are
+    whole along every axis outside ``keep``.  Differentiable: each
+    gather's backward reduce-scatters the gradient to the rank's own
+    block, so a gathered weight lives only as long as the layer that
+    gathered it (under remat, the backward gathers it again)."""
+    from repro_torch.pytree import tree_map
+    if specs is None:
+        return tree
+    mesh_axes = mesh_shape(mesh).axis_names
+
+    def one(t, spec):
+        off = len(spec) - t.ndim
+        for dim, entry in enumerate(spec[off:]):
+            if entry is None:
+                continue
+            # a dimension split over several axes, the first one major:
+            # the minor axis's blocks are joined first
+            for a in reversed(_names(entry)):
+                if a not in keep and a in mesh_axes:
+                    t = all_gather(t, mesh, a, dim)
+        return t
+    return tree_map(one, tree, specs)
 
 
 def shift_next(x, mesh, axis: str):

@@ -349,6 +349,20 @@ def named(mesh, spec_tree):
     return tree_map(lambda s: NamedSharding(mesh, P(*s)), spec_tree)
 
 
+def spec_of(t) -> P:
+    """The spec of a DTensor's placements on its mesh (the inverse of
+    :attr:`NamedSharding.placements`); a plain tensor's is replicated."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return P(*([None] * t.ndim))
+    entries: list[list] = [[] for _ in range(t.ndim)]
+    for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if pl.is_shard():
+            entries[pl.dim].append(name)
+    return P(*(None if not e else e[0] if len(e) == 1 else tuple(e)
+               for e in entries))
+
+
 def local_block(t: torch.Tensor, mesh, spec) -> torch.Tensor:
     """This rank's block of the full tensor ``t`` under ``spec`` (a view):
     each sharded dimension cut into equal blocks over its axes, the first

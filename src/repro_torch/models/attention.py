@@ -196,37 +196,116 @@ def attention_scores(q, k, v, *, causal: bool, window: int | None = None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _qkv(p, x, cfg, compute_dtype):
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _split_heads(L.dense_apply(p["q"], x, compute_dtype=compute_dtype),
-                     H, hd)
-    k = _split_heads(L.dense_apply(p["k"], x, compute_dtype=compute_dtype),
-                     KV, hd)
-    v = _split_heads(L.dense_apply(p["v"], x, compute_dtype=compute_dtype),
-                     KV, hd)
-    return q, k, v
-
-
 def _out(p, o, x, cfg, compute_dtype):
     H, hd = cfg.num_heads, cfg.head_dim
     return L.dense_apply(p["o"], o.reshape(x.shape[:-1] + (H * hd,)),
                          compute_dtype=compute_dtype)
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism over a mesh's ``model`` axis: a rank holds its block of
+# a projection's columns (q, k, v, an MLP's input) or rows (o, an MLP's
+# output), and only activations cross the axis
+# ---------------------------------------------------------------------------
+
+def whole_cols(t, n: int, mesh):
+    """``t`` (..., n) as it is, or, when it holds the rank's block of the
+    ``n`` columns (a product with a column-parallel weight), every rank's
+    block gathered over ``model``."""
+    if t.shape[-1] == n:
+        return t
+    return M.all_gather(t, mesh, "model", t.ndim - 1)
+
+
+def row_parallel(p, h, n: int, mesh, *, compute_dtype, reduce=None,
+                 keep=None):
+    """``dense_apply(p, h)`` for a layer of ``n`` input rows.  When ``p``
+    holds the rank's block of the rows over ``model``: ``h``'s matching
+    columns (cut out when ``h`` holds all ``n``) times it, ``reduce``d
+    over the axis (``psum`` by default; Megatron-SP passes
+    ``psum_scatter``), then the bias, which is whole on every rank.  With
+    whole rows: the plain product, through ``keep`` if given."""
+    w = p["w"] if "w" in p else p["w1"]
+    rows = w.shape[0]
+    if rows == n:
+        y = L.dense_apply(p, h, compute_dtype=compute_dtype)
+        return keep(y) if keep else y
+    if h.shape[-1] != rows:
+        h = h.narrow(-1, M.axis_index(mesh, "model") * rows, rows)
+    y = L.dense_apply({k: v for k, v in p.items() if k != "b"}, h,
+                      compute_dtype=compute_dtype)
+    y = reduce(y) if reduce else M.psum(y, mesh, "model")
+    return y + p["b"].to(compute_dtype) if "b" in p else y
+
+
+def _local_heads(q, k, v, cfg, mesh):
+    """q, k, v (B, S, columns) from the q, k, v projections, each the
+    rank's block of its columns over ``mesh``'s ``model`` axis or whole
+    -> per-head q (B, S, hq, hd), k and v (B, S, kv, hd), and how the
+    attention pairs them: ``(q, k, v, rep, idx)``.
+
+    * q: the rank's ``H / tp`` heads when its columns are whole heads of
+      its block, else every head (the columns gathered over ``model``);
+    * k, v: the rank's ``KV / tp`` heads when q's heads are the rank's
+      and the KV heads divide the axis (``rep`` of q's heads a KV head),
+      else every KV head (gathered when split), each q head taking its
+      group's through ``idx`` (or ``rep = H / KV`` when q has every
+      head, the plain path's repeat).
+    k and v come back before ``idx`` picks from them: what the cache
+    keeps.  Without a mesh, or at one ``model`` rank: every head, the
+    plain path's."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = 1 if mesh is None else M.tp_size(mesh)
+    b, s = q.shape[:2]
+    if H % tp == 0 and q.shape[-1] * tp == H * hd:
+        hq = H // tp
+    else:
+        q, hq = whole_cols(q, H * hd, mesh), H
+    q = q.reshape(b, s, hq, hd)
+    if hq < H and KV % tp == 0 and k.shape[-1] * tp == KV * hd:
+        kv = KV // tp
+        return (q, k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd),
+                hq // kv, None)
+    k = whole_cols(k, KV * hd, mesh).reshape(b, s, KV, hd)
+    v = whole_cols(v, KV * hd, mesh).reshape(b, s, KV, hd)
+    if hq == H:
+        return q, k, v, H // KV, None
+    h0 = M.axis_index(mesh, "model") * hq
+    return q, k, v, 1, (h0 + torch.arange(hq, device=q.device)) * KV // H
+
+
+def _projected(p, x, cfg, mesh, compute_dtype):
+    return _local_heads(*(L.dense_apply(p[n], x, compute_dtype=compute_dtype)
+                          for n in ("q", "k", "v")), cfg, mesh)
+
+
 def attn_apply(p, x, positions, cfg, *, causal=True, window=None,
-               compute_dtype=torch.bfloat16):
+               compute_dtype=torch.bfloat16, mesh=None, chunked=None,
+               reduce=None, keep=None):
     """Full-sequence attention (prefill). x: (B, S, D).  Returns the output
-    and the (k, v) the caller may keep as the prefill cache."""
-    H, KV = cfg.num_heads, cfg.num_kv_heads
-    q, k, v = _qkv(p, x, cfg, compute_dtype)
+    and the (k, v) the caller may keep as the prefill cache.  The scores
+    take the flash path from ``CHUNKED_THRESHOLD`` tokens on, or as
+    ``chunked`` says.  Over a ``mesh``, ``p`` may hold the rank's blocks
+    over ``model``: q, k, v column-parallel (the rank's heads,
+    :func:`_local_heads`) and o row-parallel (:func:`row_parallel`, with
+    ``reduce`` and ``keep``); whole weights give the plain attention."""
+    q, k, v, rep, idx = _projected(p, x, cfg, mesh, compute_dtype)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    kr, vr = _repeat_kv(k, H // KV), _repeat_kv(v, H // KV)
-    if x.shape[1] >= CHUNKED_THRESHOLD:
+    kv = (k, v)
+    if idx is not None:
+        k, v = k[:, :, idx], v[:, :, idx]
+    kr, vr = _repeat_kv(k, rep), _repeat_kv(v, rep)
+    if chunked is None:
+        chunked = x.shape[1] >= CHUNKED_THRESHOLD
+    if chunked:
         o = chunked_attention(q, kr, vr, causal, window)
     else:
         o = attention_scores(q, kr, vr, causal=causal, window=window)
-    return _out(p, o, x, cfg, compute_dtype), (k, v)
+    o = o.reshape(o.shape[:2] + (-1,))
+    return row_parallel(p["o"], o, cfg.num_heads * cfg.head_dim, mesh,
+                        compute_dtype=compute_dtype, reduce=reduce,
+                        keep=keep), kv
 
 
 def _attend_cache(p, q, x, cache_k, cache_v, valid, cfg, compute_dtype):
@@ -249,7 +328,7 @@ def attn_decode_slotted(p, x, cache_k, cache_v, pos, cfg, *, active=None,
     ``pos`` is past the cache, which the reference's one-hot select never
     writes).  Returns (out, cache_k, cache_v)."""
     s_max = cache_k.shape[1]
-    q, k, v = _qkv(p, x, cfg, compute_dtype)
+    q, k, v, _, _ = _projected(p, x, cfg, None, compute_dtype)
     pos = pos.long()
     q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
@@ -271,14 +350,17 @@ def attn_decode_slotted(p, x, cache_k, cache_v, pos, cfg, *, active=None,
 
 
 def attn_decode(p, x, cache_k, cache_v, cache_len: int, cfg, *, window=None,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, mesh=None):
     """Single-token decode at one shared fill level.  x: (B, 1, D);
-    cache_k/v: (B, S_max, KV, hd); ``cache_len``: int.  Writes the new
-    K/V at ``cache_len`` in place; returns (out, cache_k, cache_v)."""
+    cache_k/v: (B, S_max, KV', hd); ``cache_len``: int.  Writes the new
+    K/V at ``cache_len`` in place; returns (out, cache_k, cache_v).  Over
+    a ``mesh``, ``p`` as in :func:`attn_apply`: the cache then holds the
+    KV heads that :func:`_local_heads` gives the rank (its own when they
+    divide ``model``, else every one)."""
     s_max = cache_k.shape[1]
-    pos = torch.full((x.shape[0], 1), cache_len, dtype=torch.long,
-                     device=x.device)
-    q, k, v = _qkv(p, x, cfg, compute_dtype)
+    b = x.shape[0]
+    pos = torch.full((b, 1), cache_len, dtype=torch.long, device=x.device)
+    q, k, v, rep, idx = _projected(p, x, cfg, mesh, compute_dtype)
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
     cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
@@ -287,9 +369,15 @@ def attn_decode(p, x, cache_k, cache_v, cache_len: int, cfg, *, window=None,
     valid = span <= cache_len
     if window is not None:
         valid = valid & (span > cache_len - window)
-    valid = valid[None, :].expand(x.shape[0], s_max)
-    return (_attend_cache(p, q, x, cache_k, cache_v, valid, cfg,
-                          compute_dtype), cache_k, cache_v)
+    valid = valid[None, :].expand(b, s_max)
+    kc, vc = cache_k.to(compute_dtype), cache_v.to(compute_dtype)
+    if idx is not None:
+        kc, vc = kc[:, :, idx], vc[:, :, idx]
+    o = attention_scores(q, _repeat_kv(kc, rep), _repeat_kv(vc, rep),
+                         causal=False, q_offset=0, kv_len_mask=valid)
+    return (row_parallel(p["o"], o.reshape(x.shape[:-1] + (-1,)),
+                         cfg.num_heads * cfg.head_dim, mesh,
+                         compute_dtype=compute_dtype), cache_k, cache_v)
 
 
 def attn_decode_splitkv(p, x, cache_k, cache_v, cache_len: int, cfg, *,
@@ -304,13 +392,19 @@ def attn_decode_splitkv(p, x, cache_k, cache_v, cache_len: int, cfg, *,
     :func:`attn_decode` attends over the whole cache, and the spans'
     outputs merge by their log-sum-exps over ``model``: (B, H) weights and
     (B, H, hd) outputs a layer.  At one rank the weight is exp(0) = 1, so
-    a 1 x 1 mesh gives :func:`attn_decode`'s output bit for bit.  Returns
-    (out, cache_k, cache_v)."""
+    a 1 x 1 mesh gives :func:`attn_decode`'s output bit for bit.  ``p``
+    may hold the rank's blocks over ``model`` (column-parallel q, k, v,
+    row-parallel o): the one token's projected q, k and v, not the
+    weights, are gathered over the axis, and o's partial products are
+    summed over it.  Returns (out, cache_k, cache_v)."""
     s_loc = cache_k.shape[1]
     me = M.axis_index(mesh, "model")
     b = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pos = torch.full((b, 1), cache_len, dtype=torch.long, device=x.device)
-    q, k, v = _qkv(p, x, cfg, compute_dtype)
+    q, k, v = (_split_heads(whole_cols(L.dense_apply(
+        p[name], x, compute_dtype=compute_dtype), n * hd, mesh), n, hd)
+        for name, n in (("q", H), ("k", KV), ("v", KV)))
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
     lpos = cache_len - me * s_loc
@@ -322,7 +416,6 @@ def attn_decode_splitkv(p, x, cache_k, cache_v, cache_len: int, cfg, *,
     if window is not None:
         valid = valid & (gpos > cache_len - window)
     valid = valid[None, :].expand(b, s_loc)
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kr = _repeat_kv(cache_k.to(compute_dtype), H // KV)
     vr = _repeat_kv(cache_v.to(compute_dtype), H // KV)
     o = attention_scores(q, kr, vr, causal=False, kv_len_mask=valid)
@@ -335,4 +428,6 @@ def attn_decode_splitkv(p, x, cache_k, cache_v, cache_len: int, cfg, *,
     wgt = torch.exp(lse - mx)
     wgt = wgt / M.psum(wgt, mesh, "model")
     o = M.psum(o.float() * wgt[..., None], mesh, "model").to(o.dtype)
-    return _out(p, o, x, cfg, compute_dtype), cache_k, cache_v
+    o = o.reshape(x.shape[:-1] + (H * hd,))
+    return (row_parallel(p["o"], o, H * hd, mesh,
+                         compute_dtype=compute_dtype), cache_k, cache_v)

@@ -155,6 +155,14 @@ def mlp_init(generator, d_model: int, d_ff: int, kind: str, *,
 
 def mlp_apply(p, x, kind: str, *, compute_dtype=torch.bfloat16,
               act_override=None):
+    h = mlp_hidden(p, x, kind, compute_dtype=compute_dtype,
+                   act_override=act_override)
+    return dense_apply(p["w_out"], h, compute_dtype=compute_dtype)
+
+
+def mlp_hidden(p, x, kind: str, *, compute_dtype=torch.bfloat16,
+               act_override=None):
+    """The MLP's activated hidden layer, before ``w_out``."""
     if kind == "swiglu":
         act = act_override or F.silu
         h = act(dense_apply(p["w_gate"], x, compute_dtype=compute_dtype)) \
@@ -171,7 +179,7 @@ def mlp_apply(p, x, kind: str, *, compute_dtype=torch.bfloat16,
         h = act(dense_apply(p["w_in"], x, compute_dtype=compute_dtype))
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return dense_apply(p["w_out"], h, compute_dtype=compute_dtype)
+    return h
 
 
 # ---------------------------------------------------------------------------

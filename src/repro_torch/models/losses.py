@@ -5,8 +5,8 @@
 weight and returns the mean loss.  Without a mesh it is the plain path:
 the head's logits in float32, then ``layers.cross_entropy``.  Over a mesh
 it runs on every rank, on the rank's batch rows (the batch split over
-``pod`` x ``data``) with the whole weight, where the reference runs its
-``shard_map``:
+``pod`` x ``data``) with the rank's block of the weight's vocab over
+``model``, where the reference runs its ``shard_map``:
 
   * each ``model`` rank computes the logits of its own slice of the vocab;
   * the log-sum-exp is merged over ``model`` from each rank's own (a
@@ -17,9 +17,11 @@ it runs on every rank, on the rank's batch rows (the batch split over
 Every collective is differentiable (``launch.mesh``), so the gradients of
 the ranks, summed, are the plain path's gradient times the number of
 ranks, as for any loss every rank computes whole.  At one ``model`` rank
-each merge is the identity (exp(0) = 1, log(1) = 0), so a 1 x 1 mesh
-gives the plain path's loss and gradient bit for bit.  A vocab that does
-not divide the ``model`` axis takes the plain path on the rank's rows.
+each merge is the identity (exp(0) = 1, log(1) = 0).  A weight that
+holds the whole vocab (a vocab that does not divide the ``model`` axis,
+which ``sharding`` then replicates, or one ``model`` rank) takes the
+plain path on the rank's rows, its mean taken over the batch axes: at
+1 x 1 the plain path's loss and gradient bit for bit.
 """
 from __future__ import annotations
 
@@ -40,23 +42,24 @@ def _logits(x, w, tied: bool, compute_dtype):
 
 
 def vocab_parallel_ce(x, w, labels, *, mesh=None, tied: bool,
-                      z_loss: float = 1e-4, compute_dtype=torch.bfloat16):
+                      vocab: int | None = None, z_loss: float = 1e-4,
+                      compute_dtype=torch.bfloat16):
     """x: (B, S, D) final hidden states; w: the embedding table (V, D) if
     ``tied``, else the head's (D, V) weight; labels: (B, S).  Returns the
     scalar mean loss (over a mesh: B is the rank's rows, and the loss is
-    the global batch's mean, the same on every rank)."""
-    vocab = w.shape[0] if tied else w.shape[1]
+    the global batch's mean, the same on every rank).  Over a mesh ``w``
+    is the rank's block of the ``vocab`` ids over ``model`` (``(V / tp,
+    D)`` or ``(D, V / tp)``, rank-ordered) when its vocab dimension is
+    smaller than ``vocab``; else it is whole."""
+    v_loc = w.shape[0] if tied else w.shape[1]
     if mesh is None:
         return plain_ce(_logits(x, w, tied, compute_dtype), labels, z_loss)
     baxes = M.batch_axes(mesh)
-    tp = M.tp_size(mesh)
-    if "model" not in M.mesh_shape(mesh).axis_names or vocab % tp:
+    if vocab is None or v_loc == vocab:
         loss = plain_ce(_logits(x, w, tied, compute_dtype), labels, z_loss)
         return M.pmean(loss, mesh, baxes)
-    v_loc = vocab // tp
     v0 = M.axis_index(mesh, "model") * v_loc
-    wl = w[v0:v0 + v_loc] if tied else w[:, v0:v0 + v_loc]
-    logits = _logits(x, wl, tied, compute_dtype)
+    logits = _logits(x, w, tied, compute_dtype)
     lse_loc = torch.logsumexp(logits, dim=-1)               # (b, s)
     mx = M.pmax(lse_loc, mesh, "model")                     # no gradient
     lse = mx + torch.log(M.psum(torch.exp(lse_loc - mx), mesh, "model"))

@@ -21,11 +21,18 @@ family, as in the reference.
 Over a mesh (``launch.mesh``) every step runs on every rank.  The
 training step's parameters and Adam moments are DTensors placed by
 ``launch.sharding.param_pspecs`` / ``opt_pspecs``; the serving steps take
-DTensors or whole tensors.  Each DTensor leaf is gathered at use.  The
-training step takes the global batch and computes on the rank's rows of
-it; the serving steps take the rank's blocks of their batch and cache
-(``sharding.local_block`` under ``batch_pspecs`` / ``cache_pspecs``) and
-return the rank's blocks.
+DTensors or whole tensors (of which each rank cuts its ``model`` blocks
+under ``param_pspecs``).  For the attention families (``dense``, ``vlm``,
+``audio``, ``moe``) a step holds only the rank's blocks of its
+parameters, optimizer state, gradients and cache: each layer gathers its
+weights' ``data`` dims at use and computes on its ``model`` blocks
+(``transformer``'s mesh path).  The mamba families' steps gather each
+parameter whole (their decode also each cache leaf split over
+``model``).  The training step takes the global batch and computes on
+the rank's rows of it; the serving steps take the rank's blocks of their
+batch and cache (``sharding.local_block`` under ``batch_pspecs`` /
+``cache_pspecs``) and return the rank's blocks: a prefill's logits as
+``sharding.logits_pspec`` places them, a decode's whole over the vocab.
 """
 from __future__ import annotations
 
@@ -49,11 +56,56 @@ def _need_mesh(mesh, **flags) -> None:
                          "pass mesh=")
 
 
+# the families whose mesh steps compute on the rank's blocks
+BLOCK_FAMILIES = ("dense", "vlm", "audio", "moe")
+
+
 def _gathered(tree):
     """Each DTensor leaf gathered whole; other leaves as they are."""
     from torch.distributed.tensor import DTensor
     return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
                     else t, tree)
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _mode(cfg, seq_parallel: bool):
+    """The ``param_pspecs`` mode a step over a mesh takes."""
+    if not seq_parallel:
+        return None
+    return "ssm_seq" if cfg.uses_mamba else "sp_dense"
+
+
+def _rank_blocks(cfg, tree, mesh, mode):
+    """-> (the rank's blocks of ``tree``, their specs) for a serving step
+    of a :data:`BLOCK_FAMILIES` model: a DTensor's local block and the
+    spec of its placements; a whole tensor's ``model`` block under
+    ``param_pspecs`` (a view; its ``data`` dims stay whole)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import sharding as sh
+
+    def one(t, rule):
+        if isinstance(t, DTensor):
+            return t.to_local(), sh.spec_of(t)
+        spec = sh.P(*(e if e == "model" else None for e in rule))
+        return sh.local_block(t, mesh, spec), spec
+    pairs = tree_map(one, tree, sh.param_pspecs(tree, mesh, mode=mode,
+                                                cfg=cfg))
+    return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)
+
+
+def _serving_params(cfg, params, mesh, mode):
+    """-> (params, specs) as a serving step hands them to ``transformer``:
+    as given without a mesh; the rank's blocks for the
+    :data:`BLOCK_FAMILIES`; gathered whole otherwise."""
+    if mesh is None:
+        return params, None
+    if cfg.family in BLOCK_FAMILIES:
+        return _rank_blocks(cfg, params, mesh, mode)
+    return _gathered(params), None
 
 
 def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
@@ -111,52 +163,79 @@ def _metrics(loss, metrics, om):
 def _sharded_train_step(cfg, acfg, mesh, seq_parallel):
     """The training step over ``mesh``, on every rank.  ``params`` and
     ``opt_state`` are DTensors (``launch.sharding.distribute`` under
-    ``param_pspecs`` / ``opt_pspecs``); ``batch`` is the global batch, of
-    which the rank takes its rows (split over the batch axes).  Each
-    parameter is gathered at use (``full_tensor``), and its gradient
-    comes back reduce-scattered to the parameter's own blocks: every
-    rank's loss is the global one, so the ranks' gradients of
-    loss / ranks sum to its gradient.  Each rank's Adam then updates its
-    own blocks, with the gradient norm over every rank's (each replicated
-    block counted once)."""
-    from torch.distributed.tensor import DTensor, Partial
-    from repro_torch.launch.sharding import P, local_block
+    ``param_pspecs`` / ``opt_pspecs``); ``batch`` is the global batch.
+    The gradients are :func:`_sharded_grads`'; each rank's Adam then
+    updates its own blocks, with the gradient norm over every rank's."""
+    grads_of = _sharded_grads(cfg, mesh, seq_parallel)
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads, gnorm = grads_of(params, batch)
+        _, _, om = opt_mod.apply_update(tree_map(_local, params), grads,
+                                        tree_map(_local, opt_state), acfg,
+                                        gnorm)
+        return params, opt_state, _metrics(loss, metrics, om)
+    return train_step
+
+
+def _sharded_grads(cfg, mesh, seq_parallel):
+    """-> ``grads(params, batch) -> (loss, metrics, grads, grad_norm)``
+    over ``mesh``, on every rank: ``params`` DTensors, ``batch`` the
+    global batch, of which the rank takes its rows (split over the batch
+    axes); ``grads`` the rank's block of each leaf's gradient of the
+    global loss, ``grad_norm`` the global norm.  ``train_loss`` gets the
+    rank's blocks and their placements: for the :data:`BLOCK_FAMILIES`
+    each layer gathers its weights' ``data`` dims at use and computes on
+    its ``model`` blocks; the mamba families' leaves are gathered whole
+    first.  Every rank's loss is the global one, and each rank seeds loss
+    / ranks, so that a block's gradients summed over every rank that
+    holds a copy of it are its gradient: a gather's backward
+    reduce-scatters a ``data`` dim's share back to its block, and the
+    gradient of a leaf replicated along an axis is summed over that axis.
+    The norm counts each replicated block once."""
+    from repro_torch.launch.sharding import P, local_block, spec_of
 
     names = M.mesh_shape(mesh).axis_names
     ranks = M.axis_size(mesh, names)
-    partial = [Partial()] * len(names)
     rows = P(M.batch_axes(mesh) or None)
-
-    def local(t):
-        return t.to_local() if isinstance(t, DTensor) else t
 
     def copies(t):          # the ranks that hold each block of t
         return math.prod(M.axis_size(mesh, n) for n, pl in
                          zip(names, t.placements) if pl.is_replicate())
 
-    def train_step(params, opt_state, batch):
-        live = tree_map(lambda t: t.detach().requires_grad_(), params)
-        full = tree_map(lambda t: t.full_tensor(grad_placements=partial),
-                        live)
+    def summed(g, t):       # over the axes t is replicated along
+        for n, pl in zip(names, t.placements):
+            if pl.is_replicate():
+                g = M.psum(g, mesh, n)
+        return g
+
+    def grads(params, batch):
+        specs = tree_map(spec_of, params)
+        live = tree_map(lambda t: _local(t).detach().requires_grad_(),
+                        params)
+        if cfg.family in BLOCK_FAMILIES:
+            use, use_specs = live, specs
+        else:
+            use = tree_map(lambda t, s: M.gather_layer(t, s, mesh, keep=()),
+                           live, specs)
+            use_specs = None
         mine = {k: local_block(v, mesh, rows) for k, v in batch.items()}
-        loss, metrics = T.train_loss(cfg, full, mine, mesh=mesh,
-                                     seq_parallel=seq_parallel)
-        leaves = list(tree_leaves(live))
+        loss, metrics = T.train_loss(cfg, use, mine, mesh=mesh,
+                                     seq_parallel=seq_parallel,
+                                     specs=use_specs)
         # a leaf the step leaves unused (the reference's Megatron-SP body
         # reads only the "w" leaves) has a zero gradient, as under jax.grad
-        grads = iter(torch.autograd.grad(loss / ranks, leaves,
-                                         materialize_grads=True))
-        grads = tree_map(lambda _: local(next(grads)), live)
-        del live, full, leaves
+        gl = list(torch.autograd.grad(loss / ranks, list(tree_leaves(live)),
+                                      materialize_grads=True))
+        del live, use
         with torch.no_grad():
+            for i, p in enumerate(tree_leaves(params)):
+                gl[i] = summed(gl[i], p)     # one leaf's copy at a time
             sq = sum(torch.sum(torch.square(g.float())) / copies(p)
-                     for g, p in zip(tree_leaves(grads), tree_leaves(params)))
+                     for g, p in zip(gl, tree_leaves(params)))
             gnorm = torch.sqrt(M.psum(sq, mesh, names))
-        _, _, om = opt_mod.apply_update(tree_map(local, params), grads,
-                                        tree_map(local, opt_state), acfg,
-                                        gnorm)
-        return params, opt_state, _metrics(loss, metrics, om)
-    return train_step
+        it = iter(gl)
+        return loss, metrics, tree_map(lambda _: next(it), params), gnorm
+    return grads
 
 
 def _window_for(cfg: ModelConfig, shape: ShapeConfig):
@@ -199,21 +278,28 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
     (params, batch) -> (logits, cache)."""
     _need_mesh(mesh, seq_parallel=seq_parallel)
     window = _window_for(cfg, shape) if shape else None
+    mode = _mode(cfg, seq_parallel)
 
     def prefill_step(params, batch):
-        params = _gathered(params)
+        params, specs = _serving_params(cfg, params, mesh, mode)
+        kw = dict(window=window, mesh=mesh, seq_parallel=seq_parallel,
+                  specs=specs)
         if cfg.is_encoder:
-            return T.forward(cfg, params, batch, window=window)[0]
-        return T.prefill(cfg, params, batch, window=window, mesh=mesh,
-                         seq_parallel=seq_parallel)
+            return T.forward(cfg, params, batch, **kw)[0]
+        return T.prefill(cfg, params, batch, **kw)
     return prefill_step
 
 
 def _model_dims(cfg, shape, mesh, splitkv: bool) -> dict:
     """{cache key: dim} of each cache leaf whose ``cache_pspecs`` spec
-    splits a dimension over ``model`` that the decode must see whole: all
-    of them but the split-KV sequence of ``k`` / ``v`` (``conv``'s leaves
-    under ``conv.<name>``).  Empty without a mesh or a shape."""
+    splits a dimension over ``model`` that the decode must see whole:
+    every one but the split-KV sequence of ``k`` / ``v`` (``conv``'s
+    leaves under ``conv.<name>``) for the mamba families, whose decode
+    computes every head; for the :data:`BLOCK_FAMILIES`, which decode on
+    the rank's KV heads, only a sequence split that the decode does not
+    take as split-KV (``splitkv`` False at KV heads that do not divide
+    ``model``: every rank then attends over every KV head).  Empty
+    without a mesh or a shape."""
     if mesh is None or shape is None:
         return {}
     from repro_torch.launch.sharding import cache_pspecs
@@ -224,23 +310,24 @@ def _model_dims(cfg, shape, mesh, splitkv: bool) -> dict:
                 yield from flat(v, f"{pre}{k}.")
             else:
                 yield pre + k, v
+    by_heads = cfg.family in BLOCK_FAMILIES
     out = {}
     for key, spec in flat(cache_pspecs(cfg, shape, mesh,
                                        abstract_cache(cfg, shape))):
-        if splitkv and key in ("k", "v"):
-            continue
         dims = [d for d, e in enumerate(spec) if e == "model"]
-        if dims:
-            out[key] = dims[0]
+        if not dims or (key in ("k", "v") and (splitkv or (
+                by_heads and dims[0] == 3))):
+            continue
+        out[key] = dims[0]
     return out
 
 
 def _sharded_decode(step, dims: dict, mesh):
     """``step(params, cache, tokens)`` over a cache of this rank's blocks
-    (``launch.sharding.cache_pspecs``): each leaf of ``dims`` is gathered
-    whole along ``model`` before the step (the step computes every head,
-    as on its gathered parameters), and its block of the result is
-    written back into the given leaf, in place."""
+    (``launch.sharding.cache_pspecs``): each leaf of ``dims``
+    (:func:`_model_dims`) is gathered whole along ``model`` before the
+    step, and its block of the result is written back into the given
+    leaf, in place."""
     if not dims:
         return step
 
@@ -277,14 +364,16 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
     """(params, cache, tokens) -> (logits, cache).  Over a mesh, with a
     ``shape``, the cache holds this rank's blocks under
     ``launch.sharding.cache_pspecs``: its rows, and along ``model`` the
-    split-KV sequence span when ``splitkv``; any other dimension split
-    over ``model`` is gathered whole for the step."""
+    split-KV sequence span when ``splitkv``, else its KV heads, on which
+    the :data:`BLOCK_FAMILIES` decode; any other dimension split over
+    ``model`` is gathered whole for the step (:func:`_model_dims`)."""
     _need_mesh(mesh, splitkv=splitkv)
     window = _window_for(cfg, shape) if shape else None
 
     def decode_step(params, cache, tokens):
-        return T.decode_step(cfg, _gathered(params), cache, tokens,
-                             window=window, mesh=mesh, splitkv=splitkv)
+        params, specs = _serving_params(cfg, params, mesh, None)
+        return T.decode_step(cfg, params, cache, tokens, window=window,
+                             mesh=mesh, splitkv=splitkv, specs=specs)
     return _sharded_decode(decode_step, _model_dims(cfg, shape, mesh,
                                                     splitkv), mesh)
 
@@ -310,17 +399,21 @@ def make_decode_step_quantized(cfg: ModelConfig,
                                bits: int = 8, mesh=None,
                                splitkv: bool = False):
     """Decode over int-quantized weights: the tree is dequantized to
-    bfloat16 each call (``compress.tree.dequantize_tree``)."""
+    bfloat16 each call (``compress.tree.dequantize_tree``).  Over a mesh,
+    as :func:`make_decode_step`: the :data:`BLOCK_FAMILIES` dequantize
+    the rank's blocks (the scales are replicated 0-dim tensors)."""
     _need_mesh(mesh, splitkv=splitkv)
     window = _window_for(cfg, shape) if shape else None
 
     dims = _model_dims(cfg, shape, mesh, splitkv)
 
     def decode_step(qparams, scales, cache, tokens):
-        params = dequantize_tree(_gathered(qparams), _gathered(scales))
+        qparams, specs = _serving_params(cfg, qparams, mesh, None)
+        params = dequantize_tree(qparams, tree_map(_local, scales))
         return _sharded_decode(
             lambda p, c, t: T.decode_step(cfg, p, c, t, window=window,
-                                          mesh=mesh, splitkv=splitkv),
+                                          mesh=mesh, splitkv=splitkv,
+                                          specs=specs),
             dims, mesh)(params, cache, tokens)
     return decode_step
 

@@ -37,15 +37,22 @@ tensors in place and returns the cache dict; an inactive slot keeps its
 cache rows and ``pos`` bit for bit.
 
 Over a mesh (``launch.mesh``) every function runs on every rank, on the
-rank's batch rows (the batch split over ``pod`` x ``data``) with the
-whole parameter tree, and computes along ``model`` where the reference's
-explicit ``shard_map`` regions do: the vocab-parallel cross-entropy
-(``losses.vocab_parallel_ce``), sequence parallelism
+rank's batch rows (the batch split over ``pod`` x ``data``) and on the
+rank's blocks of the parameters (``specs``: their
+``sharding.param_pspecs`` placements; a leaf given whole is used
+whole).  Each layer gathers its weights' ``data`` dims at use, inside the
+layer (the FSDP gather), and never their ``model`` blocks; only
+activations cross ``model``.  The attention families' blocks are
+partitioned along ``model`` as GSPMD partitions the reference's step
+(:func:`_attn_block`: the rank's heads, its ``d_ff`` columns or its
+experts, a ``psum`` of each output), the embedding and the head on the
+rank's block of the vocab (``losses.vocab_parallel_ce``), plus the
+reference's explicit ``shard_map`` regions: sequence parallelism
 (``seq_parallel=True``: Megatron-SP over the dense blocks,
 context-parallel SSD over the mamba blocks, the hybrid's shared block on
-the gathered sequence) and split-KV decoding (``splitkv=True``).
-Elsewhere the compute along ``model`` is replicated, where the reference
-lets GSPMD partition it (ROADMAP C, divergences).
+the gathered sequence) and split-KV decoding (``splitkv=True``).  The
+mamba families' layers take whole weights (their registry steps gather
+them).
 """
 from __future__ import annotations
 
@@ -135,28 +142,16 @@ def init(cfg, generator: torch.Generator) -> dict[str, Any]:
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _ffn(cfg, bp, y, *, decode: bool = False):
+def _ffn(cfg, bp, y, *, decode: bool = False, mesh=None):
     """The block's MLP, or its MoE: -> (out, aux).  A full sequence routes
     at ``cfg.capacity_factor``; the decode paths at ``num_experts /
     top_k``, which gives every expert room for every token, so serving
-    never drops one."""
+    never drops one.  Over a ``mesh``, ``bp`` may hold the rank's blocks
+    over ``model``: see :func:`_tp_mlp` and :func:`_ep_moe`."""
     if cfg.family == "moe":
         cf = cfg.num_experts / cfg.top_k if decode else cfg.capacity_factor
-        return M.moe_apply(bp["moe"], y, top_k=cfg.top_k, capacity_factor=cf,
-                           kind=cfg.mlp_kind, compute_dtype=cfg.cdtype)
-    return (L.mlp_apply(bp["mlp"], y, cfg.mlp_kind, compute_dtype=cfg.cdtype),
-            _zero_aux(y.device))
-
-
-def _attn_block(cfg, bp, x, positions, *, window=None, emit_cache=False):
-    h, kv = A.attn_apply(bp["attn"], L.rmsnorm_apply(bp["ln1"], x,
-                                                     cfg.norm_eps),
-                         positions, cfg, causal=cfg.causal, window=window,
-                         compute_dtype=cfg.cdtype)
-    x = x + h
-    y = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
-    m, aux = _ffn(cfg, bp, y)
-    return x + m, aux, (kv if emit_cache else None)
+        return _ep_moe(cfg, mesh, bp["moe"], y, cf)
+    return _tp_mlp(cfg, mesh, bp["mlp"], y), _zero_aux(y.device)
 
 
 def _mamba_block(cfg, bp, x, ssm_impl=None):
@@ -189,7 +184,25 @@ def _zero_aux(device):
             "dropped": torch.zeros((), dtype=torch.int64, device=device)}
 
 
-def _embed_inputs(cfg, params, batch):
+def _embed(cfg, params, tokens, mesh=None):
+    """The token embeddings in the compute dtype.  Over a ``mesh`` whose
+    ``model`` axis splits the table's rows (the vocab), a vocab-parallel
+    lookup: each rank reads the tokens of its block of the vocab, zeros
+    for the others, summed over ``model`` (one nonzero term, so the sum
+    is exact)."""
+    table = params["embed"]["table"]
+    v_loc = table.shape[0]
+    if mesh is None or v_loc == cfg.vocab_size:
+        return L.embed_apply(params["embed"], tokens, cfg.cdtype)
+    rel = tokens.long() - mesh_lib.axis_index(mesh, "model") * v_loc
+    mine = (rel >= 0) & (rel < v_loc)
+    x = table[rel.clamp(0, v_loc - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return mesh_lib.psum(x, mesh, "model").to(cfg.cdtype)
+
+
+def _embed_inputs(cfg, params, batch, mesh=None):
     """-> (x (B, S', D), positions (B, S'), text offset).  Audio takes its
     frame embeddings in the compute dtype; vlm puts its patch embeddings
     (in the compute dtype) in front of the text embeddings, and the text
@@ -197,8 +210,7 @@ def _embed_inputs(cfg, params, batch):
     if cfg.family == "audio":
         x, off = batch["frames"].to(cfg.cdtype), 0
     else:
-        x, off = L.embed_apply(params["embed"], batch["tokens"],
-                               cfg.cdtype), 0
+        x, off = _embed(cfg, params, batch["tokens"], mesh), 0
         if cfg.family == "vlm":
             patches = batch["patch_embeds"].to(cfg.cdtype)
             x, off = torch.cat([patches, x], dim=1), patches.shape[1]
@@ -225,24 +237,33 @@ def _remat(cfg, train: bool, fn, *args):
 
 
 def _stacked_forward(cfg, params, x, positions, *, window=None,
-                     train: bool = False, mesh=None, seq_parallel=False):
+                     train: bool = False, mesh=None, seq_parallel=False,
+                     specs=None, cache_len=None):
     """Every block in turn.  Returns (x, aux, caches): K/V stacked as (L,
     B, S, KV, hd) (dense; (n_groups, ...) for the hybrid's shared block),
     SSM states as (L, B, H, N, P) and conv tails as (L, B, 3, width).
     ``train``: no caches (``None``), mamba scans by ``ssd_chunked`` and
     ``cfg.remat`` honoured.  ``seq_parallel``: see
-    :func:`_seq_parallel_forward`."""
+    :func:`_seq_parallel_forward`.  The attention families' blocks are
+    :func:`_attn_block`s; over a ``mesh`` each layer's K/V is cut to the
+    rank's block of a cache of ``cache_len`` positions (the sequence's
+    own length by default) as soon as the layer has made it
+    (:func:`_kv_block`)."""
     if seq_parallel:
         return _seq_parallel_forward(cfg, mesh, params, x, positions,
-                                     window=window, train=train)
+                                     window=window, train=train, specs=specs)
     aux = _zero_aux(x.device)
     ks, vs = [], []
     blocks = _layers(params["blocks"], cfg.num_layers)
     if not cfg.uses_mamba:
+        bspec = _sub(specs, "blocks")
         for bp in blocks:
             x, a, kv = _remat(cfg, train, lambda x, bp=bp: _attn_block(
-                cfg, bp, x, positions, window=window, emit_cache=not train),
-                x)
+                cfg, mesh, bp, bspec, x, positions, window=window,
+                emit_cache=not train), x)
+            if mesh is not None and not train:
+                kv = tuple(_kv_block(cfg, mesh, t, cache_len or t.shape[1])
+                           for t in kv)
             aux = {n: aux[n] + a[n] for n in aux}
             if not train:
                 ks.append(kv[0])
@@ -271,6 +292,80 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
 
 
 # ---------------------------------------------------------------------------
+# Tensor and expert parallelism over a mesh's ``model`` axis (FSDP x TP)
+# ---------------------------------------------------------------------------
+
+def _sub(specs, key):
+    return None if specs is None else specs[key]
+
+
+def _gathered_layer(bp, spec, key, mesh):
+    """Layer subtree ``bp[key]`` with its ``data`` dims gathered (the
+    ``model`` blocks stay the rank's): at use, so one weight at a time is
+    whole along ``data``."""
+    return mesh_lib.gather_layer(bp[key], _sub(spec, key), mesh)
+
+
+def _tp_mlp(cfg, mesh, m, y, *, reduce=None, keep=None):
+    """The MLP over the rank's block of the ``d_ff`` columns: ``w_in`` /
+    ``w_gate`` column-parallel, ``w_out`` row-parallel
+    (``attention.row_parallel``); whole weights (no mesh) give the plain
+    MLP, ``layers.mlp_apply``."""
+    cd = cfg.cdtype
+    hmid = L.mlp_hidden(m, y, cfg.mlp_kind, compute_dtype=cd)
+    return A.row_parallel(m["w_out"], hmid, cfg.d_ff, mesh, compute_dtype=cd,
+                          reduce=reduce, keep=keep)
+
+
+def _ep_moe(cfg, mesh, p, y, cf):
+    """The MoE over the rank's ``E / tp`` experts (expert parallelism
+    over ``model``, the reference's design, ``models/moe.py``): the router
+    over every expert, so every ``model`` rank routes its rows as the
+    no-mesh step does; each rank dispatches to and computes its own
+    experts (``moe_apply_local`` at ``expert_offset = rank * E / tp``),
+    and one ``psum`` over ``model`` sums their shares of each token's
+    output, and their ``dropped`` counts.  Whole experts (no mesh): the
+    plain MoE, ``moe.moe_apply``."""
+    E = cfg.num_experts
+    e_loc = p["w_in"].shape[0]
+    split = e_loc != E
+    off = mesh_lib.axis_index(mesh, "model") * e_loc if split else 0
+    out, aux = M.moe_apply_local(
+        p, y, num_experts_global=E, expert_offset=off, top_k=cfg.top_k,
+        capacity_factor=cf, kind=cfg.mlp_kind, compute_dtype=cfg.cdtype)
+    if split:
+        out = mesh_lib.psum(out, mesh, "model")
+        aux = dict(aux, dropped=mesh_lib.psum(aux["dropped"], mesh, "model"))
+    return out, aux
+
+
+def _attn_block(cfg, mesh, bp, spec, x, positions, *, window=None,
+                emit_cache=False):
+    """One attention block.  Without a mesh, on whole weights.  Over a
+    mesh (FSDP x TP, as GSPMD partitions the reference's step from
+    ``sharding._leaf_rule``'s placements): the residual stream ``x`` is
+    replicated over ``model`` (each rank's batch rows); each weight's
+    ``data`` dims are gathered at its use (``launch.mesh.gather_layer``,
+    ``spec`` the stacked specs of ``params["blocks"]``); its ``model``
+    block never leaves the rank.  Attention on the rank's heads
+    (``attention.attn_apply``), the MLP on its ``d_ff`` columns or the
+    MoE on its experts, each output summed over ``model``.  Under
+    ``_remat`` a gathered weight lives for the layer's forward, and the
+    backward gathers it again."""
+    h, kv = A.attn_apply(
+        _gathered_layer(bp, spec, "attn", mesh),
+        L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps), positions, cfg,
+        causal=cfg.causal, window=window, compute_dtype=cfg.cdtype,
+        mesh=mesh)
+    x = x + h
+    y = L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps)
+    key = "moe" if cfg.family == "moe" else "mlp"
+    m, aux = _ffn(cfg, {key: _gathered_layer(bp, spec, key, mesh)}, y,
+                  mesh=mesh)
+    return x + m, aux, (kv if emit_cache else None)
+
+
+# ---------------------------------------------------------------------------
 # Sequence parallelism over a mesh's ``model`` axis
 # ---------------------------------------------------------------------------
 
@@ -280,67 +375,53 @@ def _seq_span(x, mesh):
     return x.narrow(1, mesh_lib.axis_index(mesh, "model") * s_loc, s_loc)
 
 
-def _sp_dense_block(cfg, mesh, bp, x):
+def _w_only(bp, spec, key, names, mesh):
+    """The ``w`` leaves of ``bp[key][name]`` for each of ``names``,
+    gathered over ``data`` in turn (the Megatron-SP body reads nothing
+    else, ROADMAP C8)."""
+    return {n: {"w": mesh_lib.gather_layer(
+        bp[key][n]["w"], None if spec is None else spec[key][n]["w"], mesh)}
+        for n in names}
+
+
+def _sp_dense_block(cfg, mesh, bp, spec, x):
     """One dense block under Megatron-style sequence parallelism (the
     reference's ``_seq_scan_dense`` body): the residual stream ``x`` (B,
     S_loc, D) is this rank's span, so norms and residuals stay local; the
     attention (this rank's heads; its KV heads when they divide the axis,
     else every KV head, each query head taking its group's) and the MLP
-    (this rank's d_ff columns) run over the all-gathered sequence, and
-    their partial outputs are reduce-scattered back to spans.  The
-    weights' ``w`` leaves only, sliced by rank, as the reference's
-    in-specs cut them."""
-    tp, me = mesh_lib.tp_size(mesh), mesh_lib.axis_index(mesh, "model")
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    h_loc = H // tp
-    cd = cfg.cdtype
+    (this rank's d_ff columns) run over the all-gathered sequence on the
+    rank's ``model`` blocks of the weights, and their partial outputs are
+    reduce-scattered back to spans.  Each weight is gathered over
+    ``data`` at its use, in the reference's order (q, k, v, o, then
+    w_in, w_gate, w_out); its ``w`` leaves only, as the reference reads
+    (C8).  Whole weights (no ``spec``) compute every head and column on
+    every rank, each keeping its span."""
     b, s_loc, _ = x.shape
-    s = s_loc * tp
+    s = s_loc * mesh_lib.tp_size(mesh)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cd = cfg.cdtype
 
-    def cols(w, n):                 # this rank's block of n columns a rank
-        return w[:, me * n:(me + 1) * n].to(cd)
+    def scatter(y):
+        return mesh_lib.psum_scatter(y, mesh, "model", 1)
 
-    # attention: this rank's heads over the whole sequence
+    def span(y):
+        return _seq_span(y, mesh)
+
     g = mesh_lib.all_gather(L.rmsnorm_apply(bp["ln1"], x, cfg.norm_eps),
                             mesh, "model", 1).to(cd)
-    a = bp["attn"]
-    q = (g @ cols(a["q"]["w"], h_loc * hd)).reshape(b, s, h_loc, hd)
-    if KV % tp == 0:
-        kv_loc = KV // tp
-        k = (g @ cols(a["k"]["w"], kv_loc * hd)).reshape(b, s, kv_loc, hd)
-        v = (g @ cols(a["v"]["w"], kv_loc * hd)).reshape(b, s, kv_loc, hd)
-        rep = h_loc // kv_loc
-    else:                           # every KV head, one per local q head
-        k = (g @ a["k"]["w"].to(cd)).reshape(b, s, KV, hd)
-        v = (g @ a["v"]["w"].to(cd)).reshape(b, s, KV, hd)
-        kv_idx = (me * h_loc + torch.arange(h_loc, device=x.device)) \
-            * KV // H
-        k, v = k[:, :, kv_idx], v[:, :, kv_idx]
-        rep = 1
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = A.chunked_attention(q, A._repeat_kv(k, rep), A._repeat_kv(v, rep),
-                            cfg.causal, None)
-    wo = a["o"]["w"][me * h_loc * hd:(me + 1) * h_loc * hd].to(cd)
-    part = o.reshape(b, s, h_loc * hd) @ wo
-    x = x + mesh_lib.psum_scatter(part, mesh, "model", 1).to(x.dtype)
-    # MLP: this rank's d_ff columns over the whole sequence
-    m = bp["mlp"]
+    a = _w_only(bp, spec, "attn", ("q", "k", "v", "o"), mesh)
+    h, _ = A.attn_apply(a, g, positions, cfg, causal=cfg.causal,
+                        compute_dtype=cd, mesh=mesh, chunked=True,
+                        reduce=scatter, keep=span)
+    x = x + h.to(x.dtype)
     g2 = mesh_lib.all_gather(L.rmsnorm_apply(bp["ln2"], x, cfg.norm_eps),
                              mesh, "model", 1).to(cd)
-    f_loc = m["w_in"]["w"].shape[1] // tp
-    hmid = g2 @ cols(m["w_in"]["w"], f_loc)
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        act = torch.nn.functional.silu if cfg.mlp_kind == "swiglu" \
-            else L._gelu
-        hmid = act(g2 @ cols(m["w_gate"]["w"], f_loc)) * hmid
-    elif cfg.mlp_kind == "relu2":
-        hmid = torch.square(torch.relu(hmid))
-    else:
-        hmid = L._gelu(hmid)
-    part = hmid @ m["w_out"]["w"][me * f_loc:(me + 1) * f_loc].to(cd)
-    return x + mesh_lib.psum_scatter(part, mesh, "model", 1).to(x.dtype)
+    names = (("w_in", "w_gate", "w_out")
+             if cfg.mlp_kind in ("swiglu", "geglu") else ("w_in", "w_out"))
+    m = _w_only(bp, spec, "mlp", names, mesh)
+    return x + _tp_mlp(cfg, mesh, m, g2, reduce=scatter,
+                       keep=span).to(x.dtype)
 
 
 def _sp_mamba_block(cfg, mesh, bp, x):
@@ -354,7 +435,7 @@ def _sp_mamba_block(cfg, mesh, bp, x):
 
 
 def _seq_parallel_forward(cfg, mesh, params, x, positions, *, window=None,
-                          train: bool = False):
+                          train: bool = False, specs=None):
     """The blocks with the sequence split over ``model``: each rank keeps
     its span of the residual stream through every dense block (Megatron
     SP) or mamba block (context-parallel SSD); the hybrid's shared block
@@ -367,9 +448,10 @@ def _seq_parallel_forward(cfg, mesh, params, x, positions, *, window=None,
     x = _seq_span(x, mesh)
     blocks = _layers(params["blocks"], cfg.num_layers)
     if not cfg.uses_mamba:
+        bspec = _sub(specs, "blocks")
         for bp in blocks:
             x = _remat(cfg, train, lambda x, bp=bp: _sp_dense_block(
-                cfg, mesh, bp, x), x)
+                cfg, mesh, bp, bspec, x), x)
         x = mesh_lib.all_gather(x, mesh, "model", 1)
         return x, aux, (None if train else {"k": None, "v": None})
     states, ks, vs = [], [], []
@@ -395,40 +477,52 @@ def _seq_parallel_forward(cfg, mesh, params, x, positions, *, window=None,
 
 
 def backbone(cfg, params, batch, *, window=None, train: bool = False,
-             mesh=None, seq_parallel=False):
+             mesh=None, seq_parallel=False, specs=None, cache_len=None):
     """-> (final normed hidden states, aux, caches, text offset)."""
-    x, positions, off = _embed_inputs(cfg, params, batch)
+    x, positions, off = _embed_inputs(cfg, params, batch, mesh)
     x, aux, caches = _stacked_forward(cfg, params, x, positions,
                                       window=window, train=train, mesh=mesh,
-                                      seq_parallel=seq_parallel)
+                                      seq_parallel=seq_parallel, specs=specs,
+                                      cache_len=cache_len)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return x, aux, caches, off
 
 
-def _logits(cfg, params, x, off: int = 0):
+def _logits(cfg, params, x, off: int = 0, mesh=None):
     """The head (audio's with its bias) over the positions from ``off``
     on: a vlm's text positions.  The head is row by row, so the rows are
-    cut before it rather than after."""
+    cut before it rather than after.  A head that holds the rank's block
+    of the vocab over ``model`` gives that block's logits (the placement
+    of ``sharding.logits_pspec``); a bias is whole on every rank, and the
+    rank adds its block of it."""
     if off:
         x = x[:, off:]
     if cfg.family == "audio" or (not cfg.tie_embeddings
                                  and "lm_head" in params):
-        return L.dense_apply(params["lm_head"], x,
-                             compute_dtype=cfg.cdtype).float()
+        p = params["lm_head"]
+        if "b" in p and "w" in p and p["w"].shape[1] != p["b"].shape[0]:
+            n = p["w"].shape[1]
+            p = dict(p, b=p["b"].narrow(
+                0, mesh_lib.axis_index(mesh, "model") * n, n))
+        return L.dense_apply(p, x, compute_dtype=cfg.cdtype).float()
     return L.unembed_apply(params["embed"], x, cfg.cdtype)
 
 
 def forward(cfg, params, batch, *, window=None, emit_caches=False,
-            mesh=None, seq_parallel=False):
+            mesh=None, seq_parallel=False, specs=None, cache_len=None):
     """-> (logits float32, aux, caches or None); a vlm's logits cover its
-    text positions only."""
+    text positions only.  Over a mesh: ``specs`` are the placements of
+    ``params`` (each leaf the rank's block; None for whole leaves), and
+    the logits are the rank's vocab block where the head is split."""
     x, aux, caches, off = backbone(cfg, params, batch, window=window,
-                                   mesh=mesh, seq_parallel=seq_parallel)
-    return (_logits(cfg, params, x, off), aux,
+                                   mesh=mesh, seq_parallel=seq_parallel,
+                                   specs=specs, cache_len=cache_len)
+    return (_logits(cfg, params, x, off, mesh), aux,
             (caches if emit_caches else None))
 
 
-def train_loss(cfg, params, batch, mesh=None, seq_parallel=False):
+def train_loss(cfg, params, batch, mesh=None, seq_parallel=False,
+               specs=None):
     """-> (total loss, {"ce", "aux_loss", "router_z_loss", "dropped"}):
     the mean cross-entropy of ``batch["labels"]`` over the text positions
     (a vlm's logits start after its patches; audio's head has a bias),
@@ -438,21 +532,26 @@ def train_loss(cfg, params, batch, mesh=None, seq_parallel=False):
     (the plain head on the rank's rows for audio and, as in the reference,
     under the mamba families' sequence parallelism, whose vocab stays
     whole), the MoE router losses averaged over the batch axes (the mean
-    of the shards' losses: ROADMAP C, divergences)."""
+    of the shards' losses: ROADMAP C, divergences).  ``params`` may hold
+    the rank's blocks, ``specs`` their placements (see :func:`forward`):
+    the vocab-parallel loss then takes the rank's block of the head."""
     x, aux, _, off = backbone(cfg, params, batch, train=True, mesh=mesh,
-                              seq_parallel=seq_parallel)
+                              seq_parallel=seq_parallel, specs=specs)
     if off:
         x = x[:, off:]
     if cfg.family == "audio" or (seq_parallel and cfg.uses_mamba):
-        loss = losses.plain_ce(_logits(cfg, params, x), batch["labels"],
-                               cfg.z_loss)
+        logits = _logits(cfg, params, x, mesh=mesh)
+        if mesh is not None:
+            logits = A.whole_cols(logits, cfg.vocab_size, mesh)
+        loss = losses.plain_ce(logits, batch["labels"], cfg.z_loss)
         if mesh is not None:
             loss = mesh_lib.pmean(loss, mesh, mesh_lib.batch_axes(mesh))
     else:
         tied = cfg.tie_embeddings
         w = params["embed"]["table"] if tied else params["lm_head"]["w"]
         loss = losses.vocab_parallel_ce(x, w, batch["labels"], mesh=mesh,
-                                        tied=tied, z_loss=cfg.z_loss,
+                                        tied=tied, vocab=cfg.vocab_size,
+                                        z_loss=cfg.z_loss,
                                         compute_dtype=cfg.cdtype)
     if mesh is not None and cfg.family == "moe":
         baxes = mesh_lib.batch_axes(mesh)
@@ -524,21 +623,52 @@ def _write_caches(cache, caches, rows: slice, s: int) -> None:
 
 
 def prefill(cfg, params, batch, max_len: int | None = None, *, window=None,
-            mesh=None, seq_parallel=False):
+            mesh=None, seq_parallel=False, specs=None):
     """Full-sequence forward emitting caches sized to ``max_len``; the
-    fill level counts a vlm's patch positions."""
-    logits, _, caches = forward(cfg, params, batch, window=window,
-                                emit_caches=True, mesh=mesh,
-                                seq_parallel=seq_parallel)
-    b = logits.shape[0]
+    fill level counts a vlm's patch positions.  Over a mesh (see
+    :func:`forward`) an attention family's K/V cache is the rank's block
+    under ``sharding.cache_pspecs`` (:func:`_kv_block`)."""
     s = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[1]
     if cfg.family == "vlm":
         s += batch["patch_embeds"].shape[1]
-    # on the logits' own device (already a resolved one)
-    cache = _cache(cfg, b, max_len or s, cfg.cdtype, logits.device)
-    _write_caches(cache, caches, slice(None), s)
+    logits, _, caches = forward(cfg, params, batch, window=window,
+                                emit_caches=True, mesh=mesh,
+                                seq_parallel=seq_parallel, specs=specs,
+                                cache_len=max_len or s)
+    if (mesh is not None and not cfg.uses_mamba
+            and caches.get("k") is not None):
+        cache = {"k": caches["k"], "v": caches["v"]}
+    else:
+        # on the logits' own device (already a resolved one)
+        cache = _cache(cfg, logits.shape[0], max_len or s, cfg.cdtype,
+                       logits.device)
+        _write_caches(cache, caches, slice(None), s)
     cache["len"] = s
     return logits, cache
+
+
+def _kv_block(cfg, mesh, t, max_len: int):
+    """One layer's K or V (B, s, kv, hd) of the rank's rows -> its block
+    of a ``max_len``-position cache as ``sharding.cache_pspecs`` places
+    it, in the cache dtype: its KV heads when they divide ``model`` (cut
+    from every head when the rank computed them all), else its span of
+    the positions when ``max_len`` divides, else the whole cache."""
+    tp, me = mesh_lib.tp_size(mesh), mesh_lib.axis_index(mesh, "model")
+    KV = cfg.num_kv_heads
+    s = t.shape[1]
+    p0, n = 0, max_len
+    if KV % tp == 0:
+        if t.shape[2] == KV:
+            t = t.narrow(2, me * (KV // tp), KV // tp)
+    elif max_len % tp == 0:
+        n = max_len // tp
+        p0 = me * n
+    c = torch.zeros((t.shape[0], n) + t.shape[2:], dtype=cfg.cdtype,
+                    device=t.device)
+    m = max(0, min(s, p0 + n) - p0)
+    if m:
+        c[:, :m] = t[:, p0:p0 + m].to(c.dtype)
+    return c
 
 
 def _mamba_decode_layer(cfg, bp, cache, i: int, x, active):
@@ -560,12 +690,18 @@ def _mamba_decode_layer(cfg, bp, cache, i: int, x, active):
     return x + y
 
 
-def _decode_blocks(cfg, params, cache, x, attend, active=None):
+def _decode_blocks(cfg, params, cache, x, attend, active=None, mesh=None,
+                   specs=None):
     """Every block of one decode step; ``attend(p, h, ck, cv)`` is the
-    attention decode over one layer's K/V cache."""
+    attention decode over one layer's K/V cache.  Over a ``mesh`` each
+    layer's ``data`` dims are gathered for the layer, and its FFN runs on
+    the rank's ``model`` blocks (:func:`_ffn`)."""
     eps = cfg.norm_eps
+    bspec = _sub(specs, "blocks")
     for i in range(cfg.num_layers):
         bp = layer(params["blocks"], i)
+        if mesh is not None:
+            bp = mesh_lib.gather_layer(bp, bspec, mesh)
         if cfg.uses_mamba:
             x = _mamba_decode_layer(cfg, bp, cache, i, x, active)
             if not _shared_after(cfg, i):
@@ -577,12 +713,12 @@ def _decode_blocks(cfg, params, cache, x, attend, active=None):
         h, _, _ = attend(bp["attn"], h, cache["k"][gi], cache["v"][gi])
         x = x + h
         y = L.rmsnorm_apply(bp["ln2"], x, eps)
-        x = x + _ffn(cfg, bp, y, decode=True)[0]
+        x = x + _ffn(cfg, bp, y, decode=True, mesh=mesh)[0]
     return L.rmsnorm_apply(params["final_norm"], x, eps)
 
 
 def decode_step(cfg, params, cache, tokens, *, window=None, mesh=None,
-                splitkv=False):
+                splitkv=False, specs=None):
     """tokens: (B, 1) -> (logits (B, 1, V) float32, cache).  The new K/V,
     SSM states and conv tails land in the cache tensors in place; ``len``
     advances by one.  A vlm decodes as ``dense``; audio, an encoder, has
@@ -590,11 +726,15 @@ def decode_step(cfg, params, cache, tokens, *, window=None, mesh=None,
     the K/V cache holds this rank's span of the sequence, and the
     attention layers decode by ``attention.attn_decode_splitkv`` (the
     attention families; the hybrid's shared block decodes whole, as in
-    the reference)."""
+    the reference).  Otherwise, over a mesh, an attention family's
+    layers decode on the rank's heads (``attention.attn_decode``) over
+    its cache block by KV heads, or over every KV head of a whole cache;
+    ``params`` and ``specs`` as in :func:`forward`.  The logits come back whole over the vocab (the
+    head's vocab blocks gathered over ``model``)."""
     if cfg.family == "audio":
         raise ValueError(f"no decode path for family {cfg.family!r}")
     clen = cache["len"]
-    x = L.embed_apply(params["embed"], tokens, cfg.cdtype)
+    x = _embed(cfg, params, tokens, mesh)
     if splitkv and not cfg.uses_mamba:
         def attend(p, h, ck, cv):
             return A.attn_decode_splitkv(p, h, ck, cv, clen, cfg, mesh=mesh,
@@ -603,9 +743,12 @@ def decode_step(cfg, params, cache, tokens, *, window=None, mesh=None,
     else:
         def attend(p, h, ck, cv):
             return A.attn_decode(p, h, ck, cv, clen, cfg, window=window,
-                                 compute_dtype=cfg.cdtype)
-    x = _decode_blocks(cfg, params, cache, x, attend)
-    return _logits(cfg, params, x), dict(cache, len=clen + 1)
+                                 compute_dtype=cfg.cdtype, mesh=mesh)
+    x = _decode_blocks(cfg, params, cache, x, attend, mesh=mesh, specs=specs)
+    logits = _logits(cfg, params, x, mesh=mesh)
+    if mesh is not None:
+        logits = A.whole_cols(logits, cfg.vocab_size, mesh)
+    return logits, dict(cache, len=clen + 1)
 
 
 # ---------------------------------------------------------------------------

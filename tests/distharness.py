@@ -141,9 +141,10 @@ def compressed(rank, world, tmp, g):
 
 
 def vocab_ce(rank, world, tmp, x, w, y):
-    """``vocab_parallel_ce`` over a (2, 4) mesh on the rank's rows: the
-    loss with z-loss 1e-4, and the gradient of the loss without, summed
-    over the ranks over their count."""
+    """``vocab_parallel_ce`` over a (2, 4) mesh on the rank's rows and the
+    rank's block of the table's vocab: the loss with z-loss 1e-4, and the
+    gradient of the loss without, each block's summed over the ranks that
+    hold it over the rank count, the blocks gathered whole."""
     from repro_torch.launch import mesh as M
     from repro_torch.launch.sharding import P, local_block
     from repro_torch.models import losses
@@ -151,15 +152,16 @@ def vocab_ce(rank, world, tmp, x, w, y):
     rows = P("data")
     xl = local_block(torch.from_numpy(x), mesh, rows)
     yl = local_block(torch.from_numpy(y), mesh, rows)
-    wt = torch.from_numpy(w)
+    wt = local_block(torch.from_numpy(w), mesh, P("model", None))
     loss = losses.vocab_parallel_ce(xl, wt, yl, mesh=mesh, tied=True,
-                                    z_loss=1e-4,
+                                    vocab=w.shape[0], z_loss=1e-4,
                                     compute_dtype=torch.float32)
     wl = wt.clone().requires_grad_()
     l0 = losses.vocab_parallel_ce(xl, wl, yl, mesh=mesh, tied=True,
-                                  z_loss=0.0, compute_dtype=torch.float32)
+                                  vocab=w.shape[0], z_loss=0.0,
+                                  compute_dtype=torch.float32)
     g, = torch.autograd.grad(l0, [wl])
-    g = M.psum(g, mesh, ("data", "model")) / world
+    g = M.all_gather(M.psum(g, mesh, "data") / world, mesh, "model", 0)
     return float(loss), _np(g)
 
 
@@ -375,3 +377,158 @@ def cache_decode(rank, world, tmp, np_params, arch, over, prompt, toks):
         tree_leaves({k: v for k, v in whole.items() if k != "len"}),
         tree_leaves({k: v for k, v in specs.items() if k != "len"}))]
     return _np(my_rows), logits, blocks, mine["len"] == whole["len"]
+
+
+@contextlib.contextmanager
+def _env(switches: dict):
+    """The environment with ``switches`` set, restored after."""
+    old = {k: os.environ.get(k) for k in switches}
+    os.environ.update(switches)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def _whole_grads(params, grads) -> list:
+    """Each leaf's gradient block, placed as its DTensor parameter, whole."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.pytree import tree_leaves
+    return [_np(DTensor.from_local(g, p.device_mesh, p.placements,
+                                   shape=p.shape, stride=p.stride())
+                .full_tensor())
+            for p, g in zip(tree_leaves(params), tree_leaves(grads))]
+
+
+def tensor_parallel(rank, world, tmp, cases):
+    """Every case of ``cases`` ({name: (kind, arch, over, inputs)}) over a
+    (2, 4) (data, model) mesh, the parameters DTensors placed by
+    ``param_pspecs`` (mode None: FSDP over ``data``, tensor and expert
+    parallelism over ``model``), each step computing on the rank's
+    blocks.  Kinds:
+
+    * ``train``: (parameters, batch) -> (whole parameters after one
+      ``make_train_step`` step, its metrics, each leaf's gradient before
+      it, whole);
+    * ``prefill``: (parameters, batch, the reference's (logits, k, v)) ->
+      ``make_prefill_step``'s logits, then the same block of the no-mesh
+      prefill's and of the reference's (``logits_pspec``), and for ``k``
+      and ``v`` the cache block, the no-mesh one and the reference's
+      (``cache_pspecs``);
+    * ``decode``: (parameters or (int weights, scales), tokens (4, 8),
+      environment switches) -> whether it took split-KV, and the rank's
+      rows' logits at each of 8 ``make_decode_step`` (or
+      ``make_decode_step_quantized``) steps from an empty 12-slot cache
+      of the rank's blocks, split-KV where ``use_splitkv`` says under the
+      switches;
+    * ``encode``: (parameters, batch, the reference's logits) -> an
+      encoder's ``make_prefill_step`` logits, then the same block of the
+      no-mesh forward's and of the reference's.
+    Returns {name: result}, and the rank's batch rows."""
+    from repro_torch import configs as C
+    from repro_torch import weights
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_map
+    from repro_torch.train import optimizer as opt
+    mesh = make_host_mesh(data=2, model=4)
+    acfg = opt.AdamConfig(state_dtype="float32")
+
+    def placed(cfg, tree):
+        return sh.distribute(tree, sh.named(mesh, sh.param_pspecs(
+            tree, mesh, cfg=cfg)))
+
+    def tensors(batch):
+        return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    out = {}
+    for name, (kind, arch, over, inputs) in cases.items():
+        cfg = C.reduced(C.get(arch), **F32, **over)
+        if kind == "train":
+            np_params, batch = inputs
+            p = placed(cfg, weights.lm_params_from_numpy(np_params, "cpu"))
+            b = tensors(batch)
+            grads = registry._sharded_grads(cfg, mesh, False)(p, b)[2]
+            grads = _whole_grads(p, grads)
+            step = registry.make_train_step(cfg, acfg, mesh=mesh)
+            p, _, m = step(p, opt.init(p, acfg), b)
+            out[name] = (_full_tree(p), {k: float(v) for k, v in m.items()},
+                         grads)
+            continue
+        if kind in ("prefill", "encode"):
+            np_params, batch, ref = inputs
+            whole = weights.lm_params_from_numpy(np_params, "cpu")
+            b = tensors(batch)
+            s = next(iter(b.values())).shape[1] + (
+                cfg.num_patches if cfg.family == "vlm" else 0)
+            shape = ShapeConfig("prefill_32k", s, 4, "prefill")
+            bspec = sh.batch_pspecs(cfg, shape, mesh)
+            mine = {k: sh.local_block(v, mesh, bspec[k])
+                    for k, v in b.items()}
+            step = registry.make_prefill_step(cfg, shape, mesh=mesh)
+            lspec = sh.logits_pspec(cfg, shape, mesh)
+
+            def block(t, spec):
+                if isinstance(t, np.ndarray):
+                    t = torch.from_numpy(t)
+                return _np(sh.local_block(t, mesh, spec))
+            with torch.no_grad():
+                got = step(placed(cfg, whole), mine)
+                if kind == "encode":
+                    want = T.forward(cfg, whole, b)[0]
+                    out[name] = (_np(got), block(want, lspec),
+                                 block(ref, lspec))
+                    continue
+                want = T.prefill(cfg, whole, b)
+            cspec = sh.cache_pspecs(cfg, shape, mesh,
+                                    registry.abstract_cache(cfg, shape))
+            out[name] = (
+                _np(got[0]), block(want[0], lspec), block(ref[0], lspec),
+                [(_np(got[1][k]), block(want[1][k], cspec[k]),
+                  block(r, cspec[k])) for k, r in zip(("k", "v"), ref[1:])])
+            continue
+        params, toks, switches = inputs
+        shape = ShapeConfig("decode_32k", 12, toks.shape[0], "decode")
+        with _env(switches):
+            splitkv = sh.use_splitkv(cfg, shape, mesh)
+        cspec = sh.cache_pspecs(cfg, shape, mesh,
+                                registry.abstract_cache(cfg, shape))
+        full = T.init_cache(cfg, toks.shape[0], 12, dtype=torch.float32,
+                            device="cpu")
+        cache = {k: v if k == "len" else sh.local_block(v, mesh, cspec[k])
+                 .clone() for k, v in full.items()}
+        rows = sh.batch_pspecs(cfg, shape, mesh)["tokens"]
+        tl = sh.local_block(torch.from_numpy(toks), mesh, rows)
+        if isinstance(params, tuple):            # (int weights, scales)
+            q = tree_map(torch.from_numpy, params[0])
+            scales = sh.distribute(tree_map(torch.from_numpy, params[1]),
+                                   sh.named(mesh, tree_map(lambda _: sh.P(),
+                                                           params[1])))
+            qstep = registry.make_decode_step_quantized(
+                cfg, shape, 8, mesh=mesh, splitkv=splitkv)
+            q = placed(cfg, q)
+
+            def step(c, t):
+                return qstep(q, scales, c, t)
+        else:
+            p = placed(cfg, weights.lm_params_from_numpy(params, "cpu"))
+            dstep = registry.make_decode_step(cfg, shape, mesh=mesh,
+                                              splitkv=splitkv)
+
+            def step(c, t):
+                return dstep(p, c, t)
+        logits = []
+        with torch.no_grad():
+            for t in range(toks.shape[1]):
+                lg, cache = step(cache, tl[:, t:t + 1])
+                logits.append(_np(lg[:, 0]))
+        out[name] = (splitkv, np.stack(logits, 1))
+    rows = sh.local_block(torch.arange(4)[:, None], mesh, sh.P("data"))
+    return out, _np(rows[:, 0])
