@@ -452,6 +452,9 @@ MESH_SEQ = 512            # ... at seq 512 x batch 2
 MESH_BATCH = 2
 MESH_STEPS = 2
 MESH_DECODE = 4           # split-KV decode: tokens after an 8-token prompt
+# phase 20 (b): the mamba families' decode on the 1 x 1 mesh, full width,
+# cut in depth (zamba2 to one shared-block application), split-KV or not
+MESH_SSM = (("mamba2-780m", 2, (False,)), ("zamba2-1.2b", 6, (False, True)))
 MESH_TIMEOUT_S = 300
 MESH_DIR = os.path.join(SRC, "repro_torch", "_build", "chip_smoke_mesh")
 DETERMINISTIC_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG of phase 19 (c)
@@ -459,7 +462,7 @@ ENERGY_SECONDS = 5.0      # phase 21 (a): each kernel's loop under sample_power
 ENERGY_K1_CALLS = 200     # K1 launches a sampled call (one sync each)
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("mamba2-780m", "long_500k"),
                 ("qwen2-1.5b", "decode_32k"),   # phase 21 (b), both meshes
-                ("deepseek-7b", "decode_32k"))
+                ("deepseek-7b", "decode_32k"), ("zamba2-1.2b", "long_500k"))
 # cells over 80 GiB a rank before the mesh path computed on a rank's blocks
 DRYRUN_MUST_FIT = (("deepseek-7b", "decode_32k"),)
 PHASE21_TIMEOUT_S = 300   # each child process of phase 21
@@ -4021,8 +4024,9 @@ def mesh_check(torch, np, dev, mesh) -> None:
     (``launch.sharding.param_pspecs``), every loss, gradient norm and
     final parameter bitwise the no-mesh step's; then the split-KV decode
     of MESH_DECODE tokens after an 8-token prefill, logits bitwise the
-    plain decode's.  Under ``torch.use_deterministic_algorithms``, as
-    phase 19 (c)."""
+    plain decode's; then (b) the mamba families' decode of MESH_SSM
+    (:func:`mesh_decode_ssm`).  Under ``torch.use_deterministic_algorithms``,
+    as phase 19 (c)."""
     import dataclasses
     from torch.distributed.tensor import DTensor
     from repro_torch import configs
@@ -4084,16 +4088,92 @@ def mesh_check(torch, np, dev, mesh) -> None:
             fail("mesh: the 1 x 1 split-KV decode's logits differ from the "
                  "plain decode's by up to "
                  f"{float((logits[0] - logits[1]).abs().max()):.3e}")
+        print(f"mesh: {TRAIN_ARCH} width, {MESH_LAYERS} of "
+              f"{configs.get(TRAIN_ARCH).num_layers} layers, a 1 x 1 nccl "
+              f"mesh (launch.mesh.make_host_mesh): {MESH_STEPS} "
+              f"make_train_step steps at seq {MESH_SEQ} x batch "
+              f"{MESH_BATCH}, parameters and Adam moments DTensors placed by "
+              f"param_pspecs, losses and grad norms {h1} and every final "
+              f"parameter bitwise the no-mesh step's; split-KV decode of "
+              f"{MESH_DECODE} tokens after an 8-token prefill, logits "
+              f"bitwise the plain decode's; wall "
+              f"{time.perf_counter() - t0:.1f} s")
+        for arch, layers, splitkvs in MESH_SSM:
+            mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs)
     finally:
         torch.use_deterministic_algorithms(False)
-    print(f"mesh: {TRAIN_ARCH} width, {MESH_LAYERS} of "
-          f"{configs.get(TRAIN_ARCH).num_layers} layers, a 1 x 1 nccl mesh "
-          f"(launch.mesh.make_host_mesh): {MESH_STEPS} make_train_step steps "
-          f"at seq {MESH_SEQ} x batch {MESH_BATCH}, parameters and Adam "
-          f"moments DTensors placed by param_pspecs, losses and grad norms "
-          f"{h1} and every final parameter bitwise the no-mesh step's; "
-          f"split-KV decode of {MESH_DECODE} tokens after an 8-token "
-          f"prefill, logits bitwise the plain decode's; wall "
+
+
+def mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs) -> None:
+    """Phase 20 (b): ``arch`` at full width, ``layers`` deep, an 8-token
+    prefill (no mesh; the SSD scan kernel runs in it, once a layer), then
+    MESH_DECODE ``make_decode_step`` steps on the 1 x 1 mesh (the
+    parameters DTensors placed by ``param_pspecs``, the cache the rank's
+    blocks under ``cache_pspecs``: the mamba layers on the rank's heads,
+    the hybrid's shared block as an attention block) for each ``splitkv``
+    of ``splitkvs``; the logits and the final cache bitwise the no-mesh
+    decode's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    n = 8 + MESH_DECODE
+    shape = ShapeConfig("decode_32k", n, MESH_BATCH, "decode")
+    p = registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    pd = sh.distribute(p, sh.named(mesh, sh.param_pspecs(p, mesh, cfg=cfg)))
+    cspecs = sh.cache_pspecs(cfg, shape, mesh,
+                             registry.abstract_cache(cfg, shape))
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (MESH_BATCH, n))
+                            .astype(np.int32)).to(dev)
+
+    def bits(t):
+        return t.view(torch.int16) if t.element_size() == 2 else t
+
+    def decode(dec, params, cache):
+        out = []
+        for t in range(8, n):
+            lg, cache = dec(params, cache, toks[:, t:t + 1])
+            out.append(lg)
+        return torch.stack(out), [bits(t) for t in tree_leaves(
+            {k: v for k, v in cache.items() if k != "len"})]
+
+    with torch.no_grad():
+        SSDScan.launches = 0
+        prompt = T.prefill(cfg, p, {"tokens": toks[:, :8]}, max_len=n)[1]
+        k6 = SSDScan.launches
+        if dev.type == "cuda" and k6 != layers:
+            fail(f"mesh: {arch}'s prefill launched K6 {k6} times, want "
+                 f"{layers}")
+        want = decode(registry.make_decode_step(cfg, shape), p, {
+            k: v if k == "len" else tree_map(torch.clone, v)
+            for k, v in prompt.items()})
+        for splitkv in splitkvs:
+            mine = {k: v if k == "len" else tree_map(
+                lambda t, s: sh.local_block(t, mesh, s).clone(), v, cspecs[k])
+                for k, v in prompt.items()}
+            got = decode(registry.make_decode_step(
+                cfg, shape, mesh=mesh, splitkv=splitkv), pd, mine)
+            same = [torch.equal(a, b) for a, b in zip(got[1], want[1])]
+            if not torch.equal(got[0], want[0]) or not all(same):
+                fail(f"mesh: {arch} 1 x 1 decode (splitkv {splitkv}): "
+                     f"logits differ from the no-mesh decode's by up to "
+                     f"{float((got[0] - want[0]).abs().max()):.3e}; "
+                     f"{sum(same)} of {len(same)} cache leaves bitwise")
+    print(f"mesh: {arch} width, {layers} of {full.num_layers} layers, "
+          f"prefill of 8 tokens x batch {MESH_BATCH} (no mesh, K6 launched "
+          f"{k6} times), then "
+          f"{MESH_DECODE} decode steps on the 1 x 1 nccl mesh, splitkv "
+          f"{list(splitkvs)}, the parameters DTensors placed by param_pspecs "
+          f"and the cache by cache_pspecs: logits and every final cache "
+          f"leaf bitwise the no-mesh decode's; wall "
           f"{time.perf_counter() - t0:.1f} s")
 
 

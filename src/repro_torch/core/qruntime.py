@@ -230,3 +230,14 @@ def calibrate(rt: QRuntime, windows: np.ndarray, headroom: float = 0.10, *,
             maxima[k] = max(maxima.get(k, 0.0), v)
     return {k: ((1.0 + headroom) * v) / Q15_MAX if v > 0 else 1.0 / Q15_MAX
             for k, v in maxima.items()}
+
+
+def record_activations_deploy(rt: QRuntime, xs: np.ndarray) -> dict[str, float]:
+    """Thin alias: ``record_activations(rt, xs, deploy=True)``."""
+    return record_activations(rt, xs, deploy=True)
+
+
+def calibrate_deploy(rt: QRuntime, windows: np.ndarray,
+                     headroom: float = 0.10) -> dict[str, float]:
+    """Thin alias: ``calibrate(rt, windows, headroom, deploy=True)``."""
+    return calibrate(rt, windows, headroom, deploy=True)

@@ -120,3 +120,44 @@ def quantize_params(params: dict[str, Any], cfg: QuantConfig,
             q[name] = qi.to(cfg.dtype).cpu()
             scales[name] = float(s)
     return QuantizedParams(q=q, scales=scales, fp=fp, bits=cfg.bits)
+
+
+# ---------------------------------------------------------------------------
+# Activation calibration (paper Sec. III-D)
+# ---------------------------------------------------------------------------
+
+def calibrate_activations(record_fn, batches, *,
+                          headroom: float = 0.10) -> dict[str, float]:
+    """Run ``record_fn(batch) -> dict[name, tensor]`` over calibration
+    batches and return per-activation scales sized to (1 + headroom) *
+    empirical max.
+
+    ``record_fn`` returns every intermediate tensor of interest (pre-
+    activations, hidden state, logits...), as tensors or anything
+    ``torch.as_tensor`` takes; each is read in float32, as the reference
+    reads it.  The returned scales map each activation name -> Q15 scale
+    = (1 + headroom) * max|t| / 32767 (1 / 32767 for an all-zero one)."""
+    maxima: dict[str, float] = {}
+    for batch in batches:
+        for name, t in record_fn(batch).items():
+            m = float(torch.as_tensor(t, dtype=torch.float32).abs().max())
+            maxima[name] = max(maxima.get(name, 0.0), m)
+    return {name: ((1.0 + headroom) * m) / Q15_MAX if m > 0 else 1.0 / Q15_MAX
+            for name, m in maxima.items()}
+
+
+def fake_quant_activation(t: torch.Tensor, scale: float) -> torch.Tensor:
+    """Simulate Q15 storage of a float32 activation: quantize -> clip ->
+    dequantize, dividing by the scale as a float32 0-dim tensor on ``t``'s
+    device (see the module's note).
+
+    With a *naive* scale (1/32767, i.e. assuming range [-1, 1)) this
+    reproduces the paper's catastrophic collapse; with a calibrated scale
+    it is lossless to rounding noise."""
+    t = torch.as_tensor(t, dtype=torch.float32)
+    s = torch.tensor(scale, dtype=torch.float32, device=t.device)
+    q = torch.clamp(torch.round(t / s), -Q15_MAX - 1, Q15_MAX)
+    return q * s
+
+
+NAIVE_ACT_SCALE = 1.0 / Q15_MAX  # the naive Q15 [-1, 1) assumption

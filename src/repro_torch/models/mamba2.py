@@ -294,15 +294,37 @@ def mamba_apply_seq(p, xin, cfg, *, mesh, axis: str = "model",
     return out, {"ssm": run, "conv": tails}
 
 
+def _rmsnorm_split(p, x, d: int, eps: float, mesh):
+    """``layers.rmsnorm_apply`` over rows whose ``d`` columns are split
+    over ``model``: ``x`` and ``p``'s scale the rank's blocks of them.  The
+    mean of squares is the ``psum`` of each rank's float32 sum, over the
+    whole ``d``."""
+    ss = M.psum(x.float().square().sum(dim=-1, keepdim=True), mesh, "model")
+    inv = torch.rsqrt(ss / d + eps).to(x.dtype)
+    return (x * inv) * p["scale"].to(x.dtype)
+
+
 def mamba_decode(p, xin, conv_state, ssm_state, cfg, *,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, mesh=None):
     """One-token decode.  xin: (B, 1, D); conv_state: {"x", "B", "C"} of
     (B, CONV_W - 1, width); ssm_state: (B, H, N, P).  Returns (out (B, 1, D),
-    new conv state, new ssm state); the inputs are not written."""
+    new conv state, new ssm state); the inputs are not written.
+
+    Over a ``mesh``, ``p`` may hold the rank's blocks over ``model``, as
+    ``launch.sharding`` places them: the z, x and dt columns, the
+    ``conv_x`` channels and bias, ``A_log`` / ``dt_bias`` / ``D``, the
+    ``gn`` scale and the ``out_proj`` rows (B and C whole).  The cache
+    then holds the same blocks: the x conv tail's channels and the SSM
+    state's heads.  The rank decodes its heads; the gated norm's mean of
+    squares and ``out_proj``'s products are summed over ``model``.  Where
+    the channels divide ``model`` and the heads do not, the heads' leaves
+    and the SSM state are whole: the rank's conv output is gathered and
+    every rank runs every head.  Whole weights give the plain decode."""
     b = xin.shape[0]
-    d_inner, pdim, n_heads, g, n = mamba_dims(cfg)
+    d_inner, pdim, _, g, n = mamba_dims(cfg)
     cd = compute_dtype
     z, xr, Br, Cr, dt = _projections(p, xin[:, 0], cd)
+    d_loc, h_loc = xr.shape[-1], dt.shape[-1]
 
     def conv_step(state, new, w, bias):
         # the reference's einsum "bwc,wc->bc": products of compute-dtype
@@ -314,14 +336,24 @@ def mamba_decode(p, xin, conv_state, ssm_state, cfg, *,
     xr, ncx = conv_step(conv_state["x"], xr, p["conv_x"], p["conv_x_b"])
     Br, ncB = conv_step(conv_state["B"], Br, p["conv_B"], p["conv_B_b"])
     Cr, ncC = conv_step(conv_state["C"], Cr, p["conv_C"], p["conv_C_b"])
-    x = xr.reshape(b, n_heads, pdim)
+    if h_loc * pdim != d_loc:            # channels split, heads whole
+        xr = M.all_gather(xr, mesh, "model", 1)
+    x = xr.reshape(b, h_loc, pdim)
     B = Br.reshape(b, g, n)
     C = Cr.reshape(b, g, n)
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     yo, new_ssm = ssd_decode_step(ssm_state, x, dt, A, B, C)
     yo = yo + p["D"].to(cd)[None, :, None] * x
-    yo = yo.reshape(b, d_inner)
-    yo = L.rmsnorm_apply(p["gn"], yo * _silu(z), cfg.norm_eps)
-    out = L.dense_apply(p["out_proj"], yo, compute_dtype=cd)
+    yo = yo.reshape(b, h_loc * pdim)
+    if d_loc == d_inner:
+        yo = L.rmsnorm_apply(p["gn"], yo * _silu(z), cfg.norm_eps)
+        out = L.dense_apply(p["out_proj"], yo, compute_dtype=cd)
+    else:
+        if yo.shape[-1] != d_loc:
+            yo = yo.narrow(-1, M.axis_index(mesh, "model") * d_loc, d_loc)
+        yo = _rmsnorm_split(p["gn"], yo * _silu(z), d_inner, cfg.norm_eps,
+                            mesh)
+        out = M.psum(L.dense_apply(p["out_proj"], yo, compute_dtype=cd),
+                     mesh, "model")
     return out[:, None, :], {"x": ncx, "B": ncB, "C": ncC}, new_ssm

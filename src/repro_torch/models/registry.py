@@ -26,9 +26,11 @@ under ``param_pspecs``).  For the attention families (``dense``, ``vlm``,
 ``audio``, ``moe``) a step holds only the rank's blocks of its
 parameters, optimizer state, gradients and cache: each layer gathers its
 weights' ``data`` dims at use and computes on its ``model`` blocks
-(``transformer``'s mesh path).  The mamba families' steps gather each
-parameter whole (their decode also each cache leaf split over
-``model``).  The training step takes the global batch and computes on
+(``transformer``'s mesh path).  So does the mamba families' decode (the
+rank's mamba heads, the hybrid's shared block as an attention block);
+their training step and prefill gather each parameter whole (under
+sequence parallelism every parameter is replicated anyway).  The
+training step takes the global batch and computes on
 the rank's rows of it; the serving steps take the rank's blocks of their
 batch and cache (``sharding.local_block`` under ``batch_pspecs`` /
 ``cache_pspecs``) and return the rank's blocks: a prefill's logits as
@@ -81,7 +83,7 @@ def _mode(cfg, seq_parallel: bool):
 
 def _rank_blocks(cfg, tree, mesh, mode):
     """-> (the rank's blocks of ``tree``, their specs) for a serving step
-    of a :data:`BLOCK_FAMILIES` model: a DTensor's local block and the
+    on the rank's blocks: a DTensor's local block and the
     spec of its placements; a whole tensor's ``model`` block under
     ``param_pspecs`` (a view; its ``data`` dims stay whole)."""
     from torch.distributed.tensor import DTensor
@@ -97,13 +99,14 @@ def _rank_blocks(cfg, tree, mesh, mode):
     return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)
 
 
-def _serving_params(cfg, params, mesh, mode):
+def _serving_params(cfg, params, mesh, mode, decode: bool = False):
     """-> (params, specs) as a serving step hands them to ``transformer``:
-    as given without a mesh; the rank's blocks for the
-    :data:`BLOCK_FAMILIES`; gathered whole otherwise."""
+    as given without a mesh; the rank's blocks for a decode and for the
+    :data:`BLOCK_FAMILIES`; gathered whole otherwise (a mamba family's
+    prefill)."""
     if mesh is None:
         return params, None
-    if cfg.family in BLOCK_FAMILIES:
+    if decode or cfg.family in BLOCK_FAMILIES:
         return _rank_blocks(cfg, params, mesh, mode)
     return _gathered(params), None
 
@@ -291,35 +294,17 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
 
 
 def _model_dims(cfg, shape, mesh, splitkv: bool) -> dict:
-    """{cache key: dim} of each cache leaf whose ``cache_pspecs`` spec
-    splits a dimension over ``model`` that the decode must see whole:
-    every one but the split-KV sequence of ``k`` / ``v`` (``conv``'s
-    leaves under ``conv.<name>``) for the mamba families, whose decode
-    computes every head; for the :data:`BLOCK_FAMILIES`, which decode on
-    the rank's KV heads, only a sequence split that the decode does not
-    take as split-KV (``splitkv`` False at KV heads that do not divide
-    ``model``: every rank then attends over every KV head).  Empty
-    without a mesh or a shape."""
-    if mesh is None or shape is None:
+    """{"k": 2, "v": 2} when ``cache_pspecs`` splits the K/V cache's
+    sequence over ``model`` and the decode does not take split-KV
+    (``REPRO_NO_SPLITKV=1`` at KV heads that do not divide ``model``):
+    every rank then attends over every position.  Every other leaf split
+    over ``model`` is decoded on its block.  Empty without a mesh or a
+    shape."""
+    if mesh is None or shape is None or splitkv or not cfg.uses_attention:
         return {}
     from repro_torch.launch.sharding import cache_pspecs
-
-    def flat(tree, pre=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from flat(v, f"{pre}{k}.")
-            else:
-                yield pre + k, v
-    by_heads = cfg.family in BLOCK_FAMILIES
-    out = {}
-    for key, spec in flat(cache_pspecs(cfg, shape, mesh,
-                                       abstract_cache(cfg, shape))):
-        dims = [d for d, e in enumerate(spec) if e == "model"]
-        if not dims or (key in ("k", "v") and (splitkv or (
-                by_heads and dims[0] == 3))):
-            continue
-        out[key] = dims[0]
-    return out
+    specs = cache_pspecs(cfg, shape, mesh, abstract_cache(cfg, shape))
+    return {k: 2 for k in ("k", "v") if specs[k][2] == "model"}
 
 
 def _sharded_decode(step, dims: dict, mesh):
@@ -331,30 +316,17 @@ def _sharded_decode(step, dims: dict, mesh):
     if not dims:
         return step
 
-    def get(tree, key):
-        for k in key.split("."):
-            tree = tree[k]
-        return tree
-
-    def put(tree, key, val):
-        ks = key.split(".")
-        for k in ks[:-1]:
-            tree = tree[k]
-        tree[ks[-1]] = val
-
     def decode(params, cache, tokens):
-        whole = {k: (dict(v) if isinstance(v, dict) else v)
-                 for k, v in cache.items()}
+        whole = dict(cache)
         for key, d in dims.items():
-            put(whole, key, M.all_gather(get(cache, key), mesh, "model", d))
+            whole[key] = M.all_gather(cache[key], mesh, "model", d)
         logits, new = step(params, whole, tokens)
-        out = {k: (dict(v) if isinstance(v, dict) else v)
-               for k, v in new.items()}
+        out = dict(new)
         for key, d in dims.items():
-            mine, full = get(cache, key), get(new, key)
+            mine = cache[key]
             n = mine.shape[d]
-            mine.copy_(full.narrow(d, M.axis_index(mesh, "model") * n, n))
-            put(out, key, mine)
+            mine.copy_(new[key].narrow(d, M.axis_index(mesh, "model") * n, n))
+            out[key] = mine
         return logits, out
     return decode
 
@@ -364,14 +336,15 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
     """(params, cache, tokens) -> (logits, cache).  Over a mesh, with a
     ``shape``, the cache holds this rank's blocks under
     ``launch.sharding.cache_pspecs``: its rows, and along ``model`` the
-    split-KV sequence span when ``splitkv``, else its KV heads, on which
-    the :data:`BLOCK_FAMILIES` decode; any other dimension split over
-    ``model`` is gathered whole for the step (:func:`_model_dims`)."""
+    split-KV sequence span when ``splitkv``, else its KV heads, its SSM
+    state's heads and its x conv tail's channels, on which the step
+    decodes; a K/V sequence split without ``splitkv`` is gathered whole
+    for the step (:func:`_model_dims`)."""
     _need_mesh(mesh, splitkv=splitkv)
     window = _window_for(cfg, shape) if shape else None
 
     def decode_step(params, cache, tokens):
-        params, specs = _serving_params(cfg, params, mesh, None)
+        params, specs = _serving_params(cfg, params, mesh, None, decode=True)
         return T.decode_step(cfg, params, cache, tokens, window=window,
                              mesh=mesh, splitkv=splitkv, specs=specs)
     return _sharded_decode(decode_step, _model_dims(cfg, shape, mesh,
@@ -400,15 +373,16 @@ def make_decode_step_quantized(cfg: ModelConfig,
                                splitkv: bool = False):
     """Decode over int-quantized weights: the tree is dequantized to
     bfloat16 each call (``compress.tree.dequantize_tree``).  Over a mesh,
-    as :func:`make_decode_step`: the :data:`BLOCK_FAMILIES` dequantize
-    the rank's blocks (the scales are replicated 0-dim tensors)."""
+    as :func:`make_decode_step`: each rank dequantizes its blocks (the
+    scales are replicated 0-dim tensors)."""
     _need_mesh(mesh, splitkv=splitkv)
     window = _window_for(cfg, shape) if shape else None
 
     dims = _model_dims(cfg, shape, mesh, splitkv)
 
     def decode_step(qparams, scales, cache, tokens):
-        qparams, specs = _serving_params(cfg, qparams, mesh, None)
+        qparams, specs = _serving_params(cfg, qparams, mesh, None,
+                                         decode=True)
         params = dequantize_tree(qparams, tree_map(_local, scales))
         return _sharded_decode(
             lambda p, c, t: T.decode_step(cfg, p, c, t, window=window,

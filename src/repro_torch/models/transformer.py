@@ -51,8 +51,10 @@ reference's explicit ``shard_map`` regions: sequence parallelism
 (``seq_parallel=True``: Megatron-SP over the dense blocks,
 context-parallel SSD over the mamba blocks, the hybrid's shared block on
 the gathered sequence) and split-KV decoding (``splitkv=True``).  The
-mamba families' layers take whole weights (their registry steps gather
-them).
+mamba families' decode runs each mamba layer on the rank's heads
+(``mamba2.mamba_decode``) and the hybrid's shared block as an attention
+block; their full-sequence layers take whole weights (the registry
+gathers them, or they are replicated under sequence parallelism).
 """
 from __future__ import annotations
 
@@ -671,15 +673,16 @@ def _kv_block(cfg, mesh, t, max_len: int):
     return c
 
 
-def _mamba_decode_layer(cfg, bp, cache, i: int, x, active):
+def _mamba_decode_layer(cfg, bp, cache, i: int, x, active, mesh=None):
     """Mamba layer ``i`` of a decode step; its SSM state and conv tail are
     written in place, an inactive row's (``active`` False) bit for bit as
-    it was."""
+    it was.  Over a ``mesh``, on the rank's heads (``mamba2.mamba_decode``)
+    and its blocks of the cache."""
     h = L.rmsnorm_apply(bp["ln"], x, cfg.norm_eps)
     conv = {k: t[i] for k, t in cache["conv"].items()}
     ssm = cache["ssm"][i]
     y, nconv, nssm = S.mamba_decode(bp["mamba"], h, conv, ssm, cfg,
-                                    compute_dtype=cfg.cdtype)
+                                    compute_dtype=cfg.cdtype, mesh=mesh)
     if active is not None:
         nconv = {k: torch.where(active[:, None, None], nconv[k], conv[k])
                  for k in conv}
@@ -694,8 +697,9 @@ def _decode_blocks(cfg, params, cache, x, attend, active=None, mesh=None,
                    specs=None):
     """Every block of one decode step; ``attend(p, h, ck, cv)`` is the
     attention decode over one layer's K/V cache.  Over a ``mesh`` each
-    layer's ``data`` dims are gathered for the layer, and its FFN runs on
-    the rank's ``model`` blocks (:func:`_ffn`)."""
+    layer's ``data`` dims are gathered for the layer (the hybrid's shared
+    block's at each application), and it runs on the rank's ``model``
+    blocks: its heads (attention, mamba) and its FFN's (:func:`_ffn`)."""
     eps = cfg.norm_eps
     bspec = _sub(specs, "blocks")
     for i in range(cfg.num_layers):
@@ -703,10 +707,12 @@ def _decode_blocks(cfg, params, cache, x, attend, active=None, mesh=None,
         if mesh is not None:
             bp = mesh_lib.gather_layer(bp, bspec, mesh)
         if cfg.uses_mamba:
-            x = _mamba_decode_layer(cfg, bp, cache, i, x, active)
+            x = _mamba_decode_layer(cfg, bp, cache, i, x, active, mesh)
             if not _shared_after(cfg, i):
                 continue
             bp, gi = params["shared"], (i + 1) // cfg.attn_every - 1
+            if mesh is not None:
+                bp = mesh_lib.gather_layer(bp, _sub(specs, "shared"), mesh)
         else:
             gi = i
         h = L.rmsnorm_apply(bp["ln1"], x, eps)
@@ -724,18 +730,20 @@ def decode_step(cfg, params, cache, tokens, *, window=None, mesh=None,
     advances by one.  A vlm decodes as ``dense``; audio, an encoder, has
     no decode path and raises ``ValueError``.  ``splitkv`` (with a mesh):
     the K/V cache holds this rank's span of the sequence, and the
-    attention layers decode by ``attention.attn_decode_splitkv`` (the
-    attention families; the hybrid's shared block decodes whole, as in
-    the reference).  Otherwise, over a mesh, an attention family's
-    layers decode on the rank's heads (``attention.attn_decode``) over
-    its cache block by KV heads, or over every KV head of a whole cache;
-    ``params`` and ``specs`` as in :func:`forward`.  The logits come back whole over the vocab (the
-    head's vocab blocks gathered over ``model``)."""
+    attention layers (the hybrid's shared block too) decode by
+    ``attention.attn_decode_splitkv``, whose softmax merges the spans
+    over ``model``.  Otherwise, over a mesh, the attention layers decode
+    on the rank's heads (``attention.attn_decode``) over its cache block
+    by KV heads, or over every KV head of a whole cache.  The mamba
+    layers decode on the rank's heads over its blocks of the SSM state
+    and conv tail.  ``params`` and ``specs`` as in :func:`forward`.  The
+    logits come back whole over the vocab (the head's vocab blocks
+    gathered over ``model``)."""
     if cfg.family == "audio":
         raise ValueError(f"no decode path for family {cfg.family!r}")
     clen = cache["len"]
     x = _embed(cfg, params, tokens, mesh)
-    if splitkv and not cfg.uses_mamba:
+    if splitkv:
         def attend(p, h, ck, cv):
             return A.attn_decode_splitkv(p, h, ck, cv, clen, cfg, mesh=mesh,
                                          window=window,

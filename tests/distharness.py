@@ -329,17 +329,21 @@ def collectives(rank, world, tmp, arch, seq, batch):
     return counter.log
 
 
-def cache_decode(rank, world, tmp, np_params, arch, over, prompt, toks):
+def cache_decode(rank, world, tmp, np_params, arch, over, prompt, toks,
+                 bits=0):
     """``registry.make_decode_step(cfg, shape, mesh=...)`` over a (2, 4)
     (data, model) mesh from the given parameters and a cache of the
     rank's blocks under ``cache_pspecs`` (after a prefill of ``prompt``),
     beside the no-mesh decode of the whole cache, one step a column of
-    ``toks``.  Returns the rank's batch rows; per step (the rank's
-    logits, the no-mesh logits of its rows); per cache leaf (the rank's
-    final block, the same block of the no-mesh cache); and whether the
-    fill levels agree."""
+    ``toks``.  With ``bits``, ``np_params`` are (int weights, scales), the
+    prefill runs on their dequantized tree and both decodes are
+    ``make_decode_step_quantized``'s.  Returns the rank's batch rows; per
+    step (the rank's logits, the no-mesh logits of its rows); per cache
+    leaf (the rank's final block, the same block of the no-mesh cache);
+    and whether the fill levels agree."""
     from repro_torch import configs as C
     from repro_torch import weights
+    from repro_torch.compress.tree import dequantize_tree
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import make_host_mesh
@@ -349,7 +353,19 @@ def cache_decode(rank, world, tmp, np_params, arch, over, prompt, toks):
     cfg = C.reduced(C.get(arch), **F32, **over)
     shape = ShapeConfig("decode_32k", 16, prompt.shape[0], "decode")
     mesh = make_host_mesh(data=2, model=4)
-    params = weights.lm_params_from_numpy(np_params, "cpu")
+    splitkv = sh.use_splitkv(cfg, shape, mesh)
+    if bits:
+        q, s = (tree_map(torch.from_numpy, t) for t in np_params)
+        params = dequantize_tree(q, s)
+        qsteps = [registry.make_decode_step_quantized(cfg, shape, bits, **kw)
+                  for kw in (dict(mesh=mesh, splitkv=splitkv), {})]
+        on_mesh, alone = ((lambda _, c, t, f=f: f(q, s, c, t))
+                          for f in qsteps)
+    else:
+        params = weights.lm_params_from_numpy(np_params, "cpu")
+        on_mesh = registry.make_decode_step(cfg, shape, mesh=mesh,
+                                            splitkv=splitkv)
+        alone = registry.make_decode_step(cfg, shape)
     prompt, toks = torch.from_numpy(prompt), torch.from_numpy(toks)
     with torch.no_grad():
         _, whole = T.prefill(cfg, params, {"tokens": prompt},
@@ -362,9 +378,6 @@ def cache_decode(rank, world, tmp, np_params, arch, over, prompt, toks):
     rows = sh.batch_pspecs(cfg, shape, mesh)["tokens"]
     my_rows = sh.local_block(torch.arange(prompt.shape[0])[:, None], mesh,
                              rows)[:, 0]
-    on_mesh = registry.make_decode_step(
-        cfg, shape, mesh=mesh, splitkv=sh.use_splitkv(cfg, shape, mesh))
-    alone = registry.make_decode_step(cfg, shape)
     logits = []
     with torch.no_grad():
         for t in range(toks.shape[1]):

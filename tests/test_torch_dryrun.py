@@ -10,7 +10,10 @@ and peak bytes equal ``FlopCounterMode``'s and ``MemTracker``'s; the
 collectives counted on a fake 2 x 4 mesh equal those of the same step run
 for real over 8 ``gloo`` ranks (``tests/distharness.py``); nemotron-4-340b's
 training step, on a rank's blocks, is traced without being allocated and
-fits the card."""
+fits the card.  A decode over a cache split on ``model`` (the attention,
+mamba and hybrid families, float and int8) gives each rank the
+reference's logits and the no-mesh decode's cache blocks, and gathers no
+parameter or cache leaf over ``model``."""
 import json
 import math
 import resource
@@ -26,6 +29,7 @@ from jax.sharding import PartitionSpec as JP
 
 import distharness as H
 import repro.configs as JC
+from repro.compress import tree as JQ
 from repro.launch import analytic as JA
 from repro.launch import sharding as JS
 from repro.models import registry as JR
@@ -253,15 +257,40 @@ def reference_params(arch, **over):
 @pytest.mark.parametrize("arch, over", [
     ("mamba2-780m", {}),                                # SSM state, conv tail
     ("deepseek-7b", {"num_heads": 4, "num_kv_heads": 4}),   # K/V by heads
+    ("zamba2-1.2b", {"num_kv_heads": 4}),       # shared block's K/V by heads
+    ("zamba2-1.2b", {"num_kv_heads": 2}),       # shared block by split-KV
+    ("mamba2-780m", {"mamba_headdim": 64}),     # 2 heads: channels split
+    ("mamba2-780m", {"d_model": 65, "mamba_headdim": 13}),  # all whole
 ])
 def test_mesh_decode_over_a_model_sharded_cache(arch, over, tmp_path):
-    """The fault the dry-run found: a decode over a cache whose blocks are
-    split over ``model`` (``cache_pspecs``), from the reference's weights,
-    gives each rank the reference's ``prefill`` + ``decode_step`` logits
-    for its rows within 1e-3 (``test_torch_distributed``'s decode
-    tolerance), and, within 1e-5, the port's no-mesh decode's logits and
-    its block of the no-mesh cache."""
+    """A decode over a cache whose blocks are split over ``model``
+    (``cache_pspecs``), from the reference's weights, each rank on its
+    blocks of the parameters: the mamba layers on the rank's heads (or,
+    at 2 heads over 4 ranks, on its channels with every head's state; at
+    130 channels every leaf whole), the hybrid's shared block on its
+    heads by K/V heads or over its span of a split-KV cache.  Each rank
+    gets the reference's ``prefill`` + ``decode_step`` logits for its
+    rows within 1e-3 (``test_torch_distributed``'s decode tolerance),
+    and, within 1e-5, the port's no-mesh decode's logits and its block of
+    the no-mesh cache."""
+    mesh_decode_against_reference(arch, over, 0, tmp_path)
+
+
+def test_mesh_decode_quantized_over_a_model_sharded_cache(tmp_path):
+    """As :func:`test_mesh_decode_over_a_model_sharded_cache` through
+    ``make_decode_step_quantized`` over int8 weights (the reference's
+    ``quantize_tree``), reduced zamba2 by split-KV: each rank dequantizes
+    its blocks; the reference decodes its dequantized tree."""
+    mesh_decode_against_reference("zamba2-1.2b", {"num_kv_heads": 2}, 8,
+                                  tmp_path)
+
+
+def mesh_decode_against_reference(arch, over, bits, tmp_path):
     jcfg, jp, np_params = reference_params(arch, **over)
+    if bits:
+        q, s = JQ.quantize_tree(jp, bits)
+        jp = JQ.dequantize_tree(q, s)
+        np_params = tuple(jax.tree.map(np.asarray, t) for t in (q, s))
     rng = np.random.default_rng(1)
     prompt, toks = (rng.integers(0, jcfg.vocab_size, (4, n)).astype(np.int32)
                     for n in (6, 3))
@@ -274,7 +303,7 @@ def test_mesh_decode_over_a_model_sharded_cache(arch, over, tmp_path):
         want.append(np.asarray(lg))
     for rows, logits, blocks, same_len in H.run(
             H.cache_decode, 8, tmp_path, np_params, arch, over, prompt,
-            toks):
+            toks, bits):
         assert same_len and len(logits) == 3 and blocks
         for (got, alone), ref in zip(logits, want):
             assert got.shape == ref[rows].shape
@@ -282,3 +311,82 @@ def test_mesh_decode_over_a_model_sharded_cache(arch, over, tmp_path):
         for got, want_block in logits + blocks:
             assert got.shape == want_block.shape
             np.testing.assert_allclose(got, want_block, rtol=1e-5, atol=1e-5)
+
+
+class ModelGathers(D.CollectiveCounter):
+    """:class:`~repro_torch.launch.dryrun.CollectiveCounter` that also
+    keeps, for each collective, whether its operand lies in the storage of
+    one of ``leaves``."""
+
+    def __init__(self, mesh, leaves):
+        super().__init__(mesh)
+        self.ptrs = {t.untyped_storage().data_ptr() for t in leaves}
+        self.of_leaf: list[bool] = []
+
+    def _collective(self, func, args) -> None:
+        n = len(self.log)
+        super()._collective(func, args)
+        if len(self.log) > n:
+            operand = args[D._OPS[func._opname][1]]
+            self.of_leaf.append(any(t.untyped_storage().data_ptr()
+                                    in self.ptrs for t in _tensors(operand)))
+
+
+def _tensors(x):
+    """The tensors of a collective's operand (a tensor or nested lists)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for t in x:
+            yield from _tensors(t)
+
+
+@pytest.mark.parametrize("arch, over", [
+    ("mamba2-780m", {}),
+    ("mamba2-780m", {"mamba_headdim": 64}),
+    ("zamba2-1.2b", {"num_kv_heads": 4}),
+    ("zamba2-1.2b", {"num_kv_heads": 2}),
+])
+def test_mesh_decode_gathers_no_parameter_or_cache_leaf_over_model(arch,
+                                                                  over):
+    """Rank 0's collective log of one decode step of a reduced mamba
+    family on a fake 2 x 4 mesh, the parameters DTensors placed by
+    ``param_pspecs`` and the cache the rank's blocks under
+    ``cache_pspecs``: no all-gather over ``model`` takes a parameter's or
+    a cache leaf's storage (only activations cross ``model``: the mamba
+    norm's and projections' sums, the logits' vocab blocks, split-KV's
+    one token), while the hybrid's shared block still gathers its
+    weights' ``data`` dims at use."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import transformer as T
+    cfg = C.reduced(C.get(arch), **H.F32, **over)
+    shape = ShapeConfig("decode_32k", 16, 4, "decode")
+    D.fake_group(8)
+    mesh = make_host_mesh(data=2, model=4)
+    params = registry.init(cfg, torch.Generator().manual_seed(0))
+    params = sh.distribute(params, sh.named(mesh, sh.param_pspecs(
+        params, mesh, cfg=cfg)))
+    cspecs = sh.cache_pspecs(cfg, shape, mesh,
+                             registry.abstract_cache(cfg, shape))
+    whole = T.init_cache(cfg, 4, 16, dtype=torch.float32, device="cpu")
+    cache = {k: v if k == "len" else tree_map(
+        lambda t, s: sh.local_block(t, mesh, s).clone(), v, cspecs[k])
+        for k, v in whole.items()}
+    cache["len"] = 6
+    toks = torch.zeros((2, 1), dtype=torch.int32)
+    splitkv = sh.use_splitkv(cfg, shape, mesh)
+    step = registry.make_decode_step(cfg, shape, mesh=mesh, splitkv=splitkv)
+    leaves = [t.to_local() for t in tree_leaves(params)] + [
+        t for t in tree_leaves({k: v for k, v in cache.items()
+                                if k != "len"})]
+    with torch.no_grad(), ModelGathers(mesh, leaves) as counter:
+        step(params, cache, toks)
+    assert splitkv is (over.get("num_kv_heads") == 2)
+    log = list(zip(counter.log, counter.of_leaf))
+    assert [c for c, leaf in log if leaf and c[:2] == ("all-gather",
+                                                        "model")] == []
+    assert ("all-reduce", "model") in {c[:2] for c, _ in log}
+    data_gathers = [leaf for c, leaf in log if c[:2] == ("all-gather",
+                                                          "data")]
+    assert all(data_gathers)
+    assert bool(data_gathers) is (cfg.family == "hybrid")
