@@ -455,6 +455,12 @@ MESH_DECODE = 4           # split-KV decode: tokens after an 8-token prompt
 # phase 20 (b): the mamba families' decode on the 1 x 1 mesh, full width,
 # cut in depth (zamba2 to one shared-block application), split-KV or not
 MESH_SSM = (("mamba2-780m", 2, (False,)), ("zamba2-1.2b", 6, (False, True)))
+# phase 20 (c): the same models in sharding mode None (REPRO_NO_SEQP=1):
+# MESH_STEPS train steps at MESH_SEQ x MESH_BATCH, a mesh prefill handing
+# the mesh decode its cache, and K6 at a rank's heads of a MESH_TP-wide
+# model axis (the production mesh's)
+MESH_TP = 16
+MESH_C_BUDGET_S = 10.0
 MESH_TIMEOUT_S = 300
 MESH_DIR = os.path.join(SRC, "repro_torch", "_build", "chip_smoke_mesh")
 DETERMINISTIC_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG of phase 19 (c)
@@ -4025,8 +4031,9 @@ def mesh_check(torch, np, dev, mesh) -> None:
     final parameter bitwise the no-mesh step's; then the split-KV decode
     of MESH_DECODE tokens after an 8-token prefill, logits bitwise the
     plain decode's; then (b) the mamba families' decode of MESH_SSM
-    (:func:`mesh_decode_ssm`).  Under ``torch.use_deterministic_algorithms``,
-    as phase 19 (c)."""
+    (:func:`mesh_decode_ssm`), and (c) their training step, prefill and
+    decode in sharding mode None (:func:`mesh_mode_none_ssm`).  Under
+    ``torch.use_deterministic_algorithms``, as phase 19 (c)."""
     import dataclasses
     from torch.distributed.tensor import DTensor
     from repro_torch import configs
@@ -4098,13 +4105,16 @@ def mesh_check(torch, np, dev, mesh) -> None:
               f"{MESH_DECODE} tokens after an 8-token prefill, logits "
               f"bitwise the plain decode's; wall "
               f"{time.perf_counter() - t0:.1f} s")
-        for arch, layers, splitkvs in MESH_SSM:
-            mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs)
+        walls = [mesh_decode_ssm(torch, np, dev, mesh, arch, layers,
+                                 splitkvs) for arch, layers, splitkvs in MESH_SSM]
+        wall_c = sum(walls)
+        print(f"mesh (c) wall {wall_c:.1f} s (phase 20 (c), both models; "
+              f"its budget {MESH_C_BUDGET_S:.0f} s, reported, not gated)")
     finally:
         torch.use_deterministic_algorithms(False)
 
 
-def mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs) -> None:
+def mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs) -> float:
     """Phase 20 (b): ``arch`` at full width, ``layers`` deep, an 8-token
     prefill (no mesh; the SSD scan kernel runs in it, once a layer), then
     MESH_DECODE ``make_decode_step`` steps on the 1 x 1 mesh (the
@@ -4112,7 +4122,8 @@ def mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs) -> None:
     blocks under ``cache_pspecs``: the mamba layers on the rank's heads,
     the hybrid's shared block as an attention block) for each ``splitkv``
     of ``splitkvs``; the logits and the final cache bitwise the no-mesh
-    decode's."""
+    decode's.  Then (c) on the same parameters
+    (:func:`mesh_mode_none_ssm`); returns (c)'s wall."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.configs.base import ShapeConfig
@@ -4120,7 +4131,7 @@ def mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs) -> None:
     from repro_torch.launch import sharding as sh
     from repro_torch.models import registry
     from repro_torch.models import transformer as T
-    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.pytree import tree_map
     t0 = time.perf_counter()
     full = configs.get(arch)
     cfg = dataclasses.replace(full, num_layers=layers)
@@ -4134,20 +4145,16 @@ def mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs) -> None:
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (MESH_BATCH, n))
                             .astype(np.int32)).to(dev)
 
-    def bits(t):
-        return t.view(torch.int16) if t.element_size() == 2 else t
-
     def decode(dec, params, cache):
         out = []
         for t in range(8, n):
             lg, cache = dec(params, cache, toks[:, t:t + 1])
             out.append(lg)
-        return torch.stack(out), [bits(t) for t in tree_leaves(
-            {k: v for k, v in cache.items() if k != "len"})]
+        return torch.stack(out), cache_bits(torch, cache)
 
     with torch.no_grad():
         SSDScan.launches = 0
-        prompt = T.prefill(cfg, p, {"tokens": toks[:, :8]}, max_len=n)[1]
+        plog, prompt = T.prefill(cfg, p, {"tokens": toks[:, :8]}, max_len=n)
         k6 = SSDScan.launches
         if dev.type == "cuda" and k6 != layers:
             fail(f"mesh: {arch}'s prefill launched K6 {k6} times, want "
@@ -4161,12 +4168,12 @@ def mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs) -> None:
                 for k, v in prompt.items()}
             got = decode(registry.make_decode_step(
                 cfg, shape, mesh=mesh, splitkv=splitkv), pd, mine)
-            same = [torch.equal(a, b) for a, b in zip(got[1], want[1])]
-            if not torch.equal(got[0], want[0]) or not all(same):
+            if not (torch.equal(got[0], want[0])
+                    and same_cache(torch, got[1], want[1])):
                 fail(f"mesh: {arch} 1 x 1 decode (splitkv {splitkv}): "
                      f"logits differ from the no-mesh decode's by up to "
-                     f"{float((got[0] - want[0]).abs().max()):.3e}; "
-                     f"{sum(same)} of {len(same)} cache leaves bitwise")
+                     f"{float((got[0] - want[0]).abs().max()):.3e}; cache "
+                     f"bitwise: {same_cache(torch, got[1], want[1])}")
     print(f"mesh: {arch} width, {layers} of {full.num_layers} layers, "
           f"prefill of 8 tokens x batch {MESH_BATCH} (no mesh, K6 launched "
           f"{k6} times), then "
@@ -4175,6 +4182,151 @@ def mesh_decode_ssm(torch, np, dev, mesh, arch, layers, splitkvs) -> None:
           f"and the cache by cache_pspecs: logits and every final cache "
           f"leaf bitwise the no-mesh decode's; wall "
           f"{time.perf_counter() - t0:.1f} s")
+    return mesh_mode_none_ssm(torch, np, dev, mesh, cfg, p, pd, toks,
+                              (plog, cache_bits(torch, prompt)), want)
+
+
+def cache_bits(torch, cache) -> dict:
+    """A cache's leaves by key (``len`` left out), bfloat16 ones as their
+    16-bit patterns, for a bitwise comparison."""
+    from repro_torch.pytree import tree_leaves
+    return {k: [bits16(torch, t) for t in tree_leaves(v)]
+            for k, v in cache.items() if k != "len"}
+
+
+def bits16(torch, t):
+    return t.view(torch.int16) if t.element_size() == 2 else t
+
+
+def same_cache(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        len(a[k]) == len(b[k]) and all(torch.equal(x, y)
+                                       for x, y in zip(a[k], b[k]))
+        for k in a)
+
+
+def mesh_mode_none_ssm(torch, np, dev, mesh, cfg, p, pd, toks, prefilled,
+                       decoded) -> float:
+    """Phase 20 (c), on (b)'s parameters ``p`` (``pd``: placed by
+    ``param_pspecs``) under ``REPRO_NO_SEQP=1``, where the dry-run's
+    ``parallel_mode`` gives the mamba families mode None on the 1 x 1
+    mesh: MESH_STEPS ``make_train_step`` steps at MESH_SEQ x MESH_BATCH
+    from copies of ``p``, losses, grad norms and final parameters bitwise
+    the no-mesh step's; ``make_prefill_step`` over the mesh on the 8-token
+    prompt (K6 launched once a layer, counted), its logits and cache
+    bitwise the no-mesh prefill's (``prefilled``), then MESH_DECODE
+    ``make_decode_step`` steps over the mesh on that cache, logits and
+    final cache bitwise the no-mesh path's (``decoded``); then K6 through
+    its wrapper at the rank's heads of a MESH_TP-wide ``model`` axis, the
+    prefill's shape, against its plain version within phase 4's bounds.
+    Returns the wall."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.kernel import SSDScan
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import registry
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train import optimizer as opt
+    t0 = time.perf_counter()
+    n = toks.shape[1]
+    tshape = ShapeConfig("train_4k", MESH_SEQ, MESH_BATCH, "train")
+    pshape = ShapeConfig("prefill_32k", 8, MESH_BATCH, "prefill")
+    dshape = ShapeConfig("decode_32k", n, MESH_BATCH, "decode")
+    old = os.environ.get("REPRO_NO_SEQP")
+    os.environ["REPRO_NO_SEQP"] = "1"
+    try:
+        modes = {sh.parallel_mode(cfg, s, mesh) for s in (tshape, pshape)}
+    finally:
+        if old is None:
+            del os.environ["REPRO_NO_SEQP"]
+        else:
+            os.environ["REPRO_NO_SEQP"] = old
+    if modes != {None}:
+        fail(f"mesh (c): {cfg.name} takes modes {modes} under "
+             f"REPRO_NO_SEQP=1, want None")
+    acfg = opt.AdamConfig(state_dtype=cfg.opt_state_dtype)
+    batches = token_batches(torch, dev, cfg, MESH_SEQ, MESH_BATCH)
+    runs = []
+    for m in (None, mesh):
+        q = tree_map(torch.clone, p)
+        if m is not None:
+            q = sh.distribute(q, sh.named(m, sh.param_pspecs(q, m, cfg=cfg)))
+        o = opt.init(q, acfg)
+        step = registry.make_train_step(cfg, acfg, mesh=m)
+        hist = []
+        for i in range(MESH_STEPS):
+            q, o, met = step(q, o, batches(i))
+            hist.append((met["loss"].item(), met["grad_norm"].item()))
+        runs.append((hist, {"p": [bits16(torch, t.full_tensor() if isinstance(
+            t, DTensor) else t) for t in tree_leaves(q)]}))
+        del q, o, step
+    (h0, p0), (h1, p1) = runs
+    if h0 != h1 or not same_cache(torch, p0, p1):
+        fail(f"mesh (c): {cfg.name} 1 x 1 mode-None step history {h1} "
+             f"against {h0}; parameters bitwise: {same_cache(torch, p0, p1)}")
+    del runs, p0, p1
+    with torch.no_grad():
+        SSDScan.launches = 0
+        lg, cache = registry.make_prefill_step(cfg, pshape, mesh=mesh)(
+            pd, {"tokens": toks[:, :8]}, max_len=n)
+        k6 = SSDScan.launches
+        if dev.type == "cuda" and k6 != cfg.num_layers:
+            fail(f"mesh (c): {cfg.name}'s mesh prefill launched K6 {k6} "
+                 f"times, want {cfg.num_layers}")
+        if not (torch.equal(lg, prefilled[0])
+                and same_cache(torch, cache_bits(torch, cache),
+                               prefilled[1])):
+            fail(f"mesh (c): {cfg.name}'s mesh prefill differs from the "
+                 f"no-mesh prefill: logits by up to "
+                 f"{float((lg - prefilled[0]).abs().max()):.3e}")
+        dec = registry.make_decode_step(cfg, dshape, mesh=mesh)
+        out = []
+        for t in range(8, n):
+            lg, cache = dec(pd, cache, toks[:, t:t + 1])
+            out.append(lg)
+        out = torch.stack(out)
+        if not (torch.equal(out, decoded[0])
+                and same_cache(torch, cache_bits(torch, cache), decoded[1])):
+            fail(f"mesh (c): {cfg.name}'s mesh decode after the mesh "
+                 f"prefill differs from the no-mesh path's: logits by up to "
+                 f"{float((out - decoded[0]).abs().max()):.3e}")
+        pdim, groups, state = cfg.mamba_headdim, cfg.mamba_groups, \
+            cfg.ssm_state
+        heads = 2 * cfg.d_model // pdim
+        h_loc = heads // MESH_TP
+        g = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev)
+        b = MESH_BATCH
+        x, B, C = rnd(b, 8, h_loc, pdim), rnd(b, 8, groups, state), \
+            rnd(b, 8, groups, state)
+        dt = torch.nn.functional.softplus(rnd(b, 8, h_loc))
+        A = -torch.exp(rnd(h_loc))
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, Bs, Cs = (t.to(dtype) for t in (x, B, C))
+            what = (f"{str(dtype)[6:]} b={b} S=8 H={h_loc} P={pdim} "
+                    f"N={state} chunk={cfg.ssd_chunk}")
+            y, st = ops.ssd_scan(xs, dt, A, Bs, Cs, chunk=cfg.ssd_chunk)
+            want_y, want_st = ssd_plain(torch, xs, dt, A, Bs, Cs,
+                                        cfg.ssd_chunk)
+            errs.append(f"{str(dtype)[6:]} "
+                        f"{k6_error(torch, y, st, want_y, want_st, what):.3e}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"mesh (c): {cfg.name} width, {cfg.num_layers} layers, mode None "
+          f"under REPRO_NO_SEQP=1 on the 1 x 1 nccl mesh: {MESH_STEPS} "
+          f"make_train_step steps at seq {MESH_SEQ} x batch {MESH_BATCH}, "
+          f"losses and grad norms {h1} and every final parameter bitwise the "
+          f"no-mesh step's; make_prefill_step over the mesh on 8 tokens (K6 "
+          f"launched {k6} times, one a layer), logits and cache bitwise the "
+          f"no-mesh prefill's, then {MESH_DECODE} make_decode_step steps on "
+          f"its cache, logits and final cache bitwise the no-mesh path's; "
+          f"K6 at {h_loc} heads (H {heads} / model {MESH_TP}) vs plain: "
+          f"max |y diff| {', '.join(errs)}; wall {wall:.1f} s")
+    return wall
 
 
 def guard_cases(torch, dev) -> dict:

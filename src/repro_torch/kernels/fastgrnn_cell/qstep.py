@@ -140,11 +140,12 @@ def matvec_batched(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """out[b, i] = sum_j A[i, j] * x[b, j], j ascending, from +0.0.
 
     Per row the multiply and the accumulate are the same two scalar f32
-    ops in the same order as ``qruntime._matvec``."""
+    ops in the same order as ``qruntime._matvec``: every product in one
+    op (each rounded once, as alone), then one add a column, in order."""
     out = torch.zeros((x.shape[0], A.shape[0]), dtype=torch.float32,
                       device=x.device)
-    for j in range(A.shape[1]):
-        out = out + x[:, j:j + 1] * A[:, j][None, :]
+    for p in (x[:, :, None] * A.T[None, :, :]).unbind(1):
+        out = out + p
     return out
 
 

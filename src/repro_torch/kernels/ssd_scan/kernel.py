@@ -26,7 +26,9 @@ the source).
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
 launches the kernels or raises.  There is no fallback from one to the
-other.
+other.  On ``meta`` tensors (a dry-run's stand-ins: shapes and dtypes, no
+storage) it runs the plain version's ops too, so that a tracer counts the
+scan's FLOPs and bytes; nothing is computed and no kernel runs.
 """
 from __future__ import annotations
 
@@ -69,6 +71,8 @@ def chunk_cumsum(dA: torch.Tensor) -> torch.Tensor:
     on every device (``torch.cumsum`` sums in float64 on the CPU and in
     another float32 order on the card, and at a chunk's |cs| of a few
     hundred one float32 ulp of cs is a few 1e-5 of every decay)."""
+    if dA.device.type == "meta":
+        return torch.cumsum(dA, dim=1)       # a shape: there are no values
     cs = torch.empty_like(dA)
     run = torch.zeros_like(dA[:, 0])
     for i in range(dA.shape[1]):
@@ -149,7 +153,7 @@ class SSDScan:
             raise ValueError(f"chunk must be positive, got {chunk}")
         if not x.device == dt.device == A.device == B.device == C.device:
             raise ValueError("x, dt, A, B and C must lie on one device")
-        if x.device.type == "cpu":
+        if x.device.type in ("cpu", "meta"):
             return plain(x, dt, A, B, C, chunk=chunk)
         if x.device.type != "cuda":
             raise ValueError(f"x is on {x.device}: cpu or cuda")

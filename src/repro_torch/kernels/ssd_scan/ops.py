@@ -5,7 +5,9 @@ and unfold.
 
 The tensor's device decides the path: a CPU tensor runs the plain version,
 a CUDA tensor launches the hand-written kernel ``csrc/ssd_scan.cu``
-(:class:`~repro_torch.kernels.ssd_scan.kernel.SSDScan`).  S is not padded
+(:class:`~repro_torch.kernels.ssd_scan.kernel.SSDScan`), and a ``meta``
+stand-in goes through the plain version's ops without values (a dry-run
+counts their work).  S is not padded
 to a multiple of the chunk: that was the TPU's block layout; the kernel
 masks the ragged last chunk itself.
 """

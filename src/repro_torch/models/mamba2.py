@@ -16,7 +16,9 @@ Shapes: x (B, S, H, P) with H * P = d_inner; dt (B, S, H); A (H,)
 negative; B, C (B, S, G, N), G groups broadcast over H // G heads each;
 the state (B, H, N, P).  :func:`mamba_apply_seq` is the
 sequence-parallel (context-parallel) block, run on every rank of a mesh
-over the rank's span of the sequence.
+over the rank's span of the sequence; over a mesh's ``model`` axis,
+:func:`mamba_apply` and :func:`mamba_decode` also run on the rank's blocks
+of the weights (its heads and channels).
 """
 from __future__ import annotations
 
@@ -194,30 +196,71 @@ def _projections(p, xin, compute_dtype):
                  for k in ("z_proj", "x_proj", "B_proj", "C_proj", "dt_proj"))
 
 
+def _rank_groups(t, h_loc: int, cfg, mesh, dim: int):
+    """B or C, groups on ``dim``, for a scan over ``h_loc`` heads: as it is
+    with one group or with every head; else each of the rank's heads'
+    group (one group a head)."""
+    _, _, n_heads, g, _ = mamba_dims(cfg)
+    if g == 1 or h_loc == n_heads:
+        return t
+    first = M.axis_index(mesh, "model") * h_loc
+    idx = torch.arange(first, first + h_loc, device=t.device)
+    return t.index_select(dim, idx // (n_heads // g))
+
+
+def _gated_out(p, y, z, cfg, cd, mesh):
+    """The gated norm and ``out_proj`` over ``y`` (.., heads x P) and the
+    gate ``z``.  Whole ``z`` (every channel): the plain ops.  Over the
+    rank's ``d_inner / tp`` channels: ``y`` cut to them where it holds
+    every head, the norm's mean of squares and ``out_proj``'s row-parallel
+    products summed over ``model``."""
+    d_inner = mamba_dims(cfg)[0]
+    d_loc = z.shape[-1]
+    if d_loc == d_inner:
+        y = L.rmsnorm_apply(p["gn"], y * _silu(z), cfg.norm_eps)
+        return L.dense_apply(p["out_proj"], y, compute_dtype=cd)
+    if y.shape[-1] != d_loc:
+        y = y.narrow(-1, M.axis_index(mesh, "model") * d_loc, d_loc)
+    y = _rmsnorm_split(p["gn"], y * _silu(z), d_inner, cfg.norm_eps, mesh)
+    return M.psum(L.dense_apply(p["out_proj"], y, compute_dtype=cd), mesh,
+                  "model")
+
+
 def mamba_apply(p, xin, cfg, *, chunk: int = 256,
-                compute_dtype=torch.bfloat16, ssm_impl=ssd_chunked):
+                compute_dtype=torch.bfloat16, ssm_impl=ssd_chunked,
+                mesh=None):
     """Full-sequence Mamba-2 block.  xin: (B, S, D) -> (out, {"ssm": final
     state (B, H, N, P), "conv": {"x", "B", "C"}: the last CONV_W - 1
-    pre-conv inputs (B, 3, width)})."""
+    pre-conv inputs (B, 3, width)}).
+
+    Over a ``mesh``, ``p`` may hold the rank's blocks over ``model``, as
+    :func:`mamba_decode` takes them: the rank then convolves its x
+    channels over the whole sequence and scans its heads (``ssm_impl`` on
+    ``H / tp`` heads), and the state and the x conv tail it returns are
+    its blocks (the SSM state's heads, the tail's channels), as
+    ``sharding.cache_pspecs`` places them.  Where the channels divide
+    ``model`` and the heads do not, the conv output is gathered and every
+    rank scans every head.  Differentiable through its collectives."""
     b, s, _ = xin.shape
-    d_inner, pdim, n_heads, g, n = mamba_dims(cfg)
+    pdim, g, n = cfg.mamba_headdim, cfg.mamba_groups, cfg.ssm_state
     cd = compute_dtype
     z, xr, Br, Cr, dt = _projections(p, xin, cd)
+    d_loc, h_loc = xr.shape[-1], dt.shape[-1]
     conv_tails = {"x": _conv_tail(xr), "B": _conv_tail(Br),
                   "C": _conv_tail(Cr)}
     xr = _silu(_causal_conv(xr, p["conv_x"].to(cd), p["conv_x_b"].to(cd)))
     Br = _silu(_causal_conv(Br, p["conv_B"].to(cd), p["conv_B_b"].to(cd)))
     Cr = _silu(_causal_conv(Cr, p["conv_C"].to(cd), p["conv_C_b"].to(cd)))
-    x = xr.reshape(b, s, n_heads, pdim)
-    B = Br.reshape(b, s, g, n)
-    C = Cr.reshape(b, s, g, n)
+    if h_loc * pdim != d_loc:            # channels split, heads whole
+        xr = M.all_gather(xr, mesh, "model", 2)
+    x = xr.reshape(b, s, h_loc, pdim)
+    B = _rank_groups(Br.reshape(b, s, g, n), h_loc, cfg, mesh, 2)
+    C = _rank_groups(Cr.reshape(b, s, g, n), h_loc, cfg, mesh, 2)
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, state = ssm_impl(x, dt, A, B, C, chunk=chunk)
     y = y + p["D"].to(cd)[None, None, :, None] * x
-    y = y.reshape(b, s, d_inner)
-    y = L.rmsnorm_apply(p["gn"], y * _silu(z), cfg.norm_eps)
-    out = L.dense_apply(p["out_proj"], y, compute_dtype=cd)
+    out = _gated_out(p, y.reshape(b, s, h_loc * pdim), z, cfg, cd, mesh)
     return out, {"ssm": state, "conv": conv_tails}
 
 
@@ -321,7 +364,7 @@ def mamba_decode(p, xin, conv_state, ssm_state, cfg, *,
     and the SSM state are whole: the rank's conv output is gathered and
     every rank runs every head.  Whole weights give the plain decode."""
     b = xin.shape[0]
-    d_inner, pdim, _, g, n = mamba_dims(cfg)
+    pdim, g, n = cfg.mamba_headdim, cfg.mamba_groups, cfg.ssm_state
     cd = compute_dtype
     z, xr, Br, Cr, dt = _projections(p, xin[:, 0], cd)
     d_loc, h_loc = xr.shape[-1], dt.shape[-1]
@@ -339,21 +382,11 @@ def mamba_decode(p, xin, conv_state, ssm_state, cfg, *,
     if h_loc * pdim != d_loc:            # channels split, heads whole
         xr = M.all_gather(xr, mesh, "model", 1)
     x = xr.reshape(b, h_loc, pdim)
-    B = Br.reshape(b, g, n)
-    C = Cr.reshape(b, g, n)
+    B = _rank_groups(Br.reshape(b, g, n), h_loc, cfg, mesh, 1)
+    C = _rank_groups(Cr.reshape(b, g, n), h_loc, cfg, mesh, 1)
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     yo, new_ssm = ssd_decode_step(ssm_state, x, dt, A, B, C)
     yo = yo + p["D"].to(cd)[None, :, None] * x
-    yo = yo.reshape(b, h_loc * pdim)
-    if d_loc == d_inner:
-        yo = L.rmsnorm_apply(p["gn"], yo * _silu(z), cfg.norm_eps)
-        out = L.dense_apply(p["out_proj"], yo, compute_dtype=cd)
-    else:
-        if yo.shape[-1] != d_loc:
-            yo = yo.narrow(-1, M.axis_index(mesh, "model") * d_loc, d_loc)
-        yo = _rmsnorm_split(p["gn"], yo * _silu(z), d_inner, cfg.norm_eps,
-                            mesh)
-        out = M.psum(L.dense_apply(p["out_proj"], yo, compute_dtype=cd),
-                     mesh, "model")
+    out = _gated_out(p, yo.reshape(b, h_loc * pdim), z, cfg, cd, mesh)
     return out[:, None, :], {"x": ncx, "B": ncB, "C": ncC}, new_ssm

@@ -22,19 +22,20 @@ Over a mesh (``launch.mesh``) every step runs on every rank.  The
 training step's parameters and Adam moments are DTensors placed by
 ``launch.sharding.param_pspecs`` / ``opt_pspecs``; the serving steps take
 DTensors or whole tensors (of which each rank cuts its ``model`` blocks
-under ``param_pspecs``).  For the attention families (``dense``, ``vlm``,
-``audio``, ``moe``) a step holds only the rank's blocks of its
-parameters, optimizer state, gradients and cache: each layer gathers its
-weights' ``data`` dims at use and computes on its ``model`` blocks
-(``transformer``'s mesh path).  So does the mamba families' decode (the
-rank's mamba heads, the hybrid's shared block as an attention block);
-their training step and prefill gather each parameter whole (under
-sequence parallelism every parameter is replicated anyway).  The
-training step takes the global batch and computes on
-the rank's rows of it; the serving steps take the rank's blocks of their
-batch and cache (``sharding.local_block`` under ``batch_pspecs`` /
-``cache_pspecs``) and return the rank's blocks: a prefill's logits as
-``sharding.logits_pspec`` places them, a decode's whole over the vocab.
+under ``param_pspecs``).  In mode None (FSDP x TP) a step of every
+family holds only the rank's blocks of its parameters, optimizer state,
+gradients and cache: each layer gathers its weights' ``data`` dims at
+use and computes on its ``model`` blocks (``transformer``'s mesh path:
+the rank's heads, ``d_ff`` columns or experts, a mamba layer's heads and
+channels, the hybrid's shared block as an attention block).  Under the
+mamba families' sequence parallelism (``ssm_seq``) every parameter is
+replicated, and each rank computes on its span of the sequence.  The
+training step takes the global batch and computes on the rank's rows of
+it; the serving steps take the rank's blocks of their batch and cache
+(``sharding.local_block`` under ``batch_pspecs`` / ``cache_pspecs``) and
+return the rank's blocks: a prefill's logits as ``sharding.logits_pspec``
+places them and its cache as ``cache_pspecs`` does (what the mesh
+decode takes), a decode's logits whole over the vocab.
 """
 from __future__ import annotations
 
@@ -56,10 +57,6 @@ def _need_mesh(mesh, **flags) -> None:
     if on and mesh is None:
         raise ValueError(f"{' and '.join(on)} run over a mesh's model axis: "
                          "pass mesh=")
-
-
-# the families whose mesh steps compute on the rank's blocks
-BLOCK_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 def _gathered(tree):
@@ -99,16 +96,15 @@ def _rank_blocks(cfg, tree, mesh, mode):
     return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)
 
 
-def _serving_params(cfg, params, mesh, mode, decode: bool = False):
+def _serving_params(cfg, params, mesh, mode):
     """-> (params, specs) as a serving step hands them to ``transformer``:
-    as given without a mesh; the rank's blocks for a decode and for the
-    :data:`BLOCK_FAMILIES`; gathered whole otherwise (a mamba family's
-    prefill)."""
+    as given without a mesh; gathered whole under ``ssm_seq`` (whose
+    weights are replicated); the rank's blocks otherwise."""
     if mesh is None:
         return params, None
-    if decode or cfg.family in BLOCK_FAMILIES:
-        return _rank_blocks(cfg, params, mesh, mode)
-    return _gathered(params), None
+    if mode == "ssm_seq":
+        return _gathered(params), None
+    return _rank_blocks(cfg, params, mesh, mode)
 
 
 def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
@@ -186,10 +182,11 @@ def _sharded_grads(cfg, mesh, seq_parallel):
     global batch, of which the rank takes its rows (split over the batch
     axes); ``grads`` the rank's block of each leaf's gradient of the
     global loss, ``grad_norm`` the global norm.  ``train_loss`` gets the
-    rank's blocks and their placements: for the :data:`BLOCK_FAMILIES`
-    each layer gathers its weights' ``data`` dims at use and computes on
-    its ``model`` blocks; the mamba families' leaves are gathered whole
-    first.  Every rank's loss is the global one, and each rank seeds loss
+    rank's blocks and their placements: each layer gathers its weights'
+    ``data`` dims at use and computes on its ``model`` blocks; under the
+    mamba families' sequence parallelism every leaf is gathered whole
+    first (a replicated leaf is whole already).  Every rank's loss is the
+    global one, and each rank seeds loss
     / ranks, so that a block's gradients summed over every rank that
     holds a copy of it are its gradient: a gather's backward
     reduce-scatters a ``data`` dim's share back to its block, and the
@@ -215,12 +212,12 @@ def _sharded_grads(cfg, mesh, seq_parallel):
         specs = tree_map(spec_of, params)
         live = tree_map(lambda t: _local(t).detach().requires_grad_(),
                         params)
-        if cfg.family in BLOCK_FAMILIES:
-            use, use_specs = live, specs
-        else:
+        if seq_parallel and cfg.uses_mamba:
             use = tree_map(lambda t, s: M.gather_layer(t, s, mesh, keep=()),
                            live, specs)
             use_specs = None
+        else:
+            use, use_specs = live, specs
         mine = {k: local_block(v, mesh, rows) for k, v in batch.items()}
         loss, metrics = T.train_loss(cfg, use, mine, mesh=mesh,
                                      seq_parallel=seq_parallel,
@@ -278,18 +275,21 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
                       mesh=None, seq_parallel: bool = False):
     """An encoder's prefill is its forward pass: (params, batch) ->
     logits (the audio family's serving entry point).  Otherwise
-    (params, batch) -> (logits, cache)."""
+    (params, batch, max_len=None) -> (logits, cache), the cache sized to
+    ``max_len`` positions (the sequence's own length by default) and,
+    over a mesh, the rank's blocks of it under ``cache_pspecs``, which
+    :func:`make_decode_step` over the same mesh takes."""
     _need_mesh(mesh, seq_parallel=seq_parallel)
     window = _window_for(cfg, shape) if shape else None
     mode = _mode(cfg, seq_parallel)
 
-    def prefill_step(params, batch):
+    def prefill_step(params, batch, max_len=None):
         params, specs = _serving_params(cfg, params, mesh, mode)
         kw = dict(window=window, mesh=mesh, seq_parallel=seq_parallel,
                   specs=specs)
         if cfg.is_encoder:
             return T.forward(cfg, params, batch, **kw)[0]
-        return T.prefill(cfg, params, batch, **kw)
+        return T.prefill(cfg, params, batch, max_len, **kw)
     return prefill_step
 
 
@@ -344,7 +344,7 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeConfig | None = None,
     window = _window_for(cfg, shape) if shape else None
 
     def decode_step(params, cache, tokens):
-        params, specs = _serving_params(cfg, params, mesh, None, decode=True)
+        params, specs = _serving_params(cfg, params, mesh, None)
         return T.decode_step(cfg, params, cache, tokens, window=window,
                              mesh=mesh, splitkv=splitkv, specs=specs)
     return _sharded_decode(decode_step, _model_dims(cfg, shape, mesh,
@@ -381,8 +381,7 @@ def make_decode_step_quantized(cfg: ModelConfig,
     dims = _model_dims(cfg, shape, mesh, splitkv)
 
     def decode_step(qparams, scales, cache, tokens):
-        qparams, specs = _serving_params(cfg, qparams, mesh, None,
-                                         decode=True)
+        qparams, specs = _serving_params(cfg, qparams, mesh, None)
         params = dequantize_tree(qparams, tree_map(_local, scales))
         return _sharded_decode(
             lambda p, c, t: T.decode_step(cfg, p, c, t, window=window,

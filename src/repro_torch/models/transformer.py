@@ -51,10 +51,12 @@ reference's explicit ``shard_map`` regions: sequence parallelism
 (``seq_parallel=True``: Megatron-SP over the dense blocks,
 context-parallel SSD over the mamba blocks, the hybrid's shared block on
 the gathered sequence) and split-KV decoding (``splitkv=True``).  The
-mamba families' decode runs each mamba layer on the rank's heads
-(``mamba2.mamba_decode``) and the hybrid's shared block as an attention
-block; their full-sequence layers take whole weights (the registry
-gathers them, or they are replicated under sequence parallelism).
+mamba families run each mamba layer on the rank's heads and channels
+(``mamba2.mamba_apply`` over a full sequence, ``mamba2.mamba_decode`` for
+a token) and the hybrid's shared block as an attention block; under
+sequence parallelism their weights are replicated and each rank runs
+its span.  A prefill over a mesh returns the rank's blocks of the cache,
+as the mesh decode takes them.
 """
 from __future__ import annotations
 
@@ -156,26 +158,19 @@ def _ffn(cfg, bp, y, *, decode: bool = False, mesh=None):
     return _tp_mlp(cfg, mesh, bp["mlp"], y), _zero_aux(y.device)
 
 
-def _mamba_block(cfg, bp, x, ssm_impl=None):
+def _mamba_block(cfg, bp, x, ssm_impl=None, mesh=None, spec=None):
     """One mamba layer; its scan is ``ssm_impl``, by default the SSD scan
     kernel's entry point (looked up at the call, so a caller may wrap
-    it)."""
+    it).  Over a ``mesh``, on the rank's ``model`` blocks of the layer
+    (``mamba2.mamba_apply``), its ``data`` dims gathered at use; the
+    state it returns is the rank's blocks."""
+    if mesh is not None:
+        bp = mesh_lib.gather_layer(bp, spec, mesh)
     y, state = S.mamba_apply(bp["mamba"],
                              L.rmsnorm_apply(bp["ln"], x, cfg.norm_eps), cfg,
                              chunk=cfg.ssd_chunk, compute_dtype=cfg.cdtype,
-                             ssm_impl=ssm_impl or ssd_ops.ssd_scan)
+                             ssm_impl=ssm_impl or ssd_ops.ssd_scan, mesh=mesh)
     return x + y, state
-
-
-def _shared_block(cfg, sp, x, positions, *, window=None):
-    h, kv = A.attn_apply(sp["attn"], L.rmsnorm_apply(sp["ln1"], x,
-                                                     cfg.norm_eps),
-                         positions, cfg, causal=True, window=window,
-                         compute_dtype=cfg.cdtype)
-    x = x + h
-    m = L.mlp_apply(sp["mlp"], L.rmsnorm_apply(sp["ln2"], x, cfg.norm_eps),
-                    cfg.mlp_kind, compute_dtype=cfg.cdtype)
-    return x + m, kv
 
 
 def _zero_aux(device):
@@ -253,7 +248,8 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
     (:func:`_kv_block`)."""
     if seq_parallel:
         return _seq_parallel_forward(cfg, mesh, params, x, positions,
-                                     window=window, train=train, specs=specs)
+                                     window=window, train=train, specs=specs,
+                                     cache_len=cache_len)
     aux = _zero_aux(x.device)
     ks, vs = [], []
     blocks = _layers(params["blocks"], cfg.num_layers)
@@ -263,9 +259,8 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
             x, a, kv = _remat(cfg, train, lambda x, bp=bp: _attn_block(
                 cfg, mesh, bp, bspec, x, positions, window=window,
                 emit_cache=not train), x)
-            if mesh is not None and not train:
-                kv = tuple(_kv_block(cfg, mesh, t, cache_len or t.shape[1])
-                           for t in kv)
+            if not train:
+                kv = _kv_blocks(cfg, mesh, kv, cache_len)
             aux = {n: aux[n] + a[n] for n in aux}
             if not train:
                 ks.append(kv[0])
@@ -275,22 +270,54 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
         return x, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
     states = []
     impl = S.ssd_chunked if train else None
+    bspec = _sub(specs, "blocks")
+    sspec = _sub(specs, "shared") if cfg.family == "hybrid" else None
     for i, bp in enumerate(blocks):
         x, st = _remat(cfg, train, lambda x, bp=bp: _mamba_block(
-            cfg, bp, x, impl), x)
-        states.append(st)
+            cfg, bp, x, impl, mesh, bspec), x)
+        if not train:
+            states.append(_state_block(cfg, mesh, st))
         if _shared_after(cfg, i):
-            x, (k, v) = _remat(cfg, train, lambda x: _shared_block(
-                cfg, params["shared"], x, positions, window=window), x)
-            ks.append(k)
-            vs.append(v)
+            # the hybrid's shared block runs as an attention block
+            x, _, kv = _remat(cfg, train, lambda x: _attn_block(
+                cfg, mesh, params["shared"], sspec, x, positions,
+                window=window, emit_cache=not train), x)
+            if not train:
+                k, v = _kv_blocks(cfg, mesh, kv, cache_len)
+                ks.append(k)
+                vs.append(v)
     if train:
         return x, aux, None
+    return x, aux, _mamba_caches(cfg, states, ks, vs)
+
+
+def _mamba_caches(cfg, states, ks, vs):
+    """The mamba families' caches: each layer's SSM state and conv tails,
+    and the hybrid's shared-block K/V, stacked."""
     caches = _stack(states)
     if cfg.family == "hybrid":
         caches["k"] = torch.stack(ks) if ks else None
         caches["v"] = torch.stack(vs) if vs else None
-    return x, aux, caches
+    return caches
+
+
+def _state_block(cfg, mesh, st):
+    """One mamba layer's SSM state (B, H, N, P) and conv tails -> over a
+    ``mesh``, the rank's blocks under ``sharding.cache_pspecs``: the
+    state's heads and the x tail's channels where they divide ``model``
+    (copies, so that no whole one outlives the layer); blocks already
+    the rank's stay as they are.  Without a mesh, as they are."""
+    if mesh is None:
+        return st
+    tp, me = mesh_lib.tp_size(mesh), mesh_lib.axis_index(mesh, "model")
+    d_inner, _, n_heads, _, _ = S.mamba_dims(cfg)
+
+    def mine(t, dim, n):
+        if n % tp or t.shape[dim] != n:
+            return t
+        return t.narrow(dim, me * (n // tp), n // tp).clone()
+    return {"ssm": mine(st["ssm"], 1, n_heads),
+            "conv": dict(st["conv"], x=mine(st["conv"]["x"], 2, d_inner))}
 
 
 # ---------------------------------------------------------------------------
@@ -437,15 +464,18 @@ def _sp_mamba_block(cfg, mesh, bp, x):
 
 
 def _seq_parallel_forward(cfg, mesh, params, x, positions, *, window=None,
-                          train: bool = False, specs=None):
+                          train: bool = False, specs=None, cache_len=None):
     """The blocks with the sequence split over ``model``: each rank keeps
     its span of the residual stream through every dense block (Megatron
     SP) or mamba block (context-parallel SSD); the hybrid's shared block
     runs on the gathered sequence and each rank keeps its span of its
     output.  Returns the whole sequence (gathered) and, unless ``train``,
-    the caches: the mamba states are global, the shared block's K/V cover
-    the sequence, and the dense blocks keep no K/V (``None``, as the
-    reference's ``_seq_scan_dense`` returns)."""
+    the caches: the rank's blocks of the mamba layers' global states and
+    conv tails and of the shared block's K/V over the sequence, as
+    ``sharding.cache_pspecs`` places them (:func:`_state_block`,
+    :func:`_kv_block`, each cut as its layer made it); the dense blocks
+    keep no K/V (``None``, as the reference's ``_seq_scan_dense``
+    returns)."""
     aux = _zero_aux(x.device)
     x = _seq_span(x, mesh)
     blocks = _layers(params["blocks"], cfg.num_layers)
@@ -460,22 +490,22 @@ def _seq_parallel_forward(cfg, mesh, params, x, positions, *, window=None,
     for i, bp in enumerate(blocks):
         x, st = _remat(cfg, train, lambda x, bp=bp: _sp_mamba_block(
             cfg, mesh, bp, x), x)
-        states.append(st)
+        states.append(st if train else _state_block(cfg, mesh, st))
         if _shared_after(cfg, i):
             full = mesh_lib.all_gather(x, mesh, "model", 1)
-            full, (k, v) = _remat(cfg, train, lambda x: _shared_block(
-                cfg, params["shared"], x, positions, window=window), full)
+            # the shared block on whole weights over the gathered sequence
+            full, _, kv = _remat(cfg, train, lambda x: _attn_block(
+                cfg, None, params["shared"], None, x, positions,
+                window=window, emit_cache=not train), full)
             x = _seq_span(full, mesh)
-            ks.append(k)
-            vs.append(v)
+            if not train:
+                k, v = _kv_blocks(cfg, mesh, kv, cache_len)
+                ks.append(k)
+                vs.append(v)
     x = mesh_lib.all_gather(x, mesh, "model", 1)
     if train:
         return x, aux, None
-    caches = _stack(states)
-    if cfg.family == "hybrid":
-        caches["k"] = torch.stack(ks) if ks else None
-        caches["v"] = torch.stack(vs) if vs else None
-    return x, aux, caches
+    return x, aux, _mamba_caches(cfg, states, ks, vs)
 
 
 def backbone(cfg, params, batch, *, window=None, train: bool = False,
@@ -628,8 +658,11 @@ def prefill(cfg, params, batch, max_len: int | None = None, *, window=None,
             mesh=None, seq_parallel=False, specs=None):
     """Full-sequence forward emitting caches sized to ``max_len``; the
     fill level counts a vlm's patch positions.  Over a mesh (see
-    :func:`forward`) an attention family's K/V cache is the rank's block
-    under ``sharding.cache_pspecs`` (:func:`_kv_block`)."""
+    :func:`forward`) the cache is the rank's blocks under
+    ``sharding.cache_pspecs``, which the mesh decode takes as they are:
+    an attention family's K/V (:func:`_kv_block`), and a mamba family's
+    SSM states, conv tails and shared-block K/V (:func:`_state_block`),
+    in either sharding mode."""
     s = (batch["tokens"] if "tokens" in batch else batch["frames"]).shape[1]
     if cfg.family == "vlm":
         s += batch["patch_embeds"].shape[1]
@@ -637,8 +670,15 @@ def prefill(cfg, params, batch, max_len: int | None = None, *, window=None,
                                 emit_caches=True, mesh=mesh,
                                 seq_parallel=seq_parallel, specs=specs,
                                 cache_len=max_len or s)
-    if (mesh is not None and not cfg.uses_mamba
-            and caches.get("k") is not None):
+    if mesh is not None and cfg.uses_mamba:
+        cache = dict(caches)
+        if cfg.family == "hybrid" and cache["k"] is None:
+            # no shared-block application: an empty stack of K/V blocks
+            empty = _kv_block(cfg, mesh, logits.new_zeros(
+                (logits.shape[0], 0, cfg.num_kv_heads, cfg.head_dim)),
+                max_len or s)[None][:0]
+            cache["k"] = cache["v"] = empty
+    elif mesh is not None and caches.get("k") is not None:
         cache = {"k": caches["k"], "v": caches["v"]}
     else:
         # on the logits' own device (already a resolved one)
@@ -647,6 +687,16 @@ def prefill(cfg, params, batch, max_len: int | None = None, *, window=None,
         _write_caches(cache, caches, slice(None), s)
     cache["len"] = s
     return logits, cache
+
+
+def _kv_blocks(cfg, mesh, kv, cache_len):
+    """One layer's (k, v): over a ``mesh``, each cut to the rank's block of
+    a ``cache_len``-position cache (:func:`_kv_block`; the sequence's own
+    length by default); without one, as they are."""
+    if mesh is None:
+        return kv
+    return tuple(_kv_block(cfg, mesh, t, cache_len or t.shape[1])
+                 for t in kv)
 
 
 def _kv_block(cfg, mesh, t, max_len: int):

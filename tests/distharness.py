@@ -392,6 +392,49 @@ def cache_decode(rank, world, tmp, np_params, arch, over, prompt, toks,
     return _np(my_rows), logits, blocks, mine["len"] == whole["len"]
 
 
+def _chain(cfg, mesh, np_params, prompt, toks, seq_parallel, max_len):
+    """The ``chain`` kind of :func:`tensor_parallel`."""
+    from repro_torch import weights
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_leaves
+    whole = weights.lm_params_from_numpy(np_params, "cpu")
+    prompt, toks = torch.from_numpy(prompt), torch.from_numpy(toks)
+    b, s = prompt.shape
+    pshape = ShapeConfig("prefill_32k", s, b, "prefill")
+    dshape = ShapeConfig("decode_32k", max_len, b, "decode")
+    rows = sh.batch_pspecs(cfg, pshape, mesh)["tokens"]
+    lspec = (sh.P(rows[0], None, None) if seq_parallel
+             else sh.logits_pspec(cfg, pshape, mesh))
+    cspec = sh.cache_pspecs(cfg, dshape, mesh,
+                            registry.abstract_cache(cfg, dshape))
+    prefill = registry.make_prefill_step(cfg, pshape, mesh=mesh,
+                                         seq_parallel=seq_parallel)
+    decode = registry.make_decode_step(
+        cfg, dshape, mesh=mesh, splitkv=sh.use_splitkv(cfg, dshape, mesh))
+
+    def leaves(cache):                  # in the order of cspec's keys
+        return [t for k in cspec if k != "len" for t in tree_leaves(cache[k])]
+    with torch.no_grad():
+        logits, cache = prefill(whole, {"tokens": sh.local_block(
+            prompt, mesh, rows)}, max_len=max_len)
+        want, wcache = T.prefill(cfg, whole, {"tokens": prompt},
+                                 max_len=max_len)
+        # copies: the decode writes the cache in place
+        blocks = [(_np(g).copy(), _np(sh.local_block(w, mesh, spec)))
+                  for g, w, spec in zip(leaves(cache), leaves(wcache),
+                                        leaves(cspec))]
+        steps = []
+        for t in range(toks.shape[1]):
+            lg, cache = decode(whole, cache, sh.local_block(
+                toks[:, t:t + 1], mesh, rows))
+            steps.append(_np(lg[:, 0]))
+    return (_np(logits), _np(sh.local_block(want, mesh, lspec)), blocks,
+            np.stack(steps, 1), cache["len"])
+
+
 @contextlib.contextmanager
 def _env(switches: dict):
     """The environment with ``switches`` set, restored after."""
@@ -440,7 +483,18 @@ def tensor_parallel(rank, world, tmp, cases):
       switches;
     * ``encode``: (parameters, batch, the reference's logits) -> an
       encoder's ``make_prefill_step`` logits, then the same block of the
-      no-mesh forward's and of the reference's.
+      no-mesh forward's and of the reference's;
+    * ``chain``: (parameters, prompt, tokens, ``seq_parallel``, cache
+      length) -> ``make_prefill_step`` over the mesh on the rank's rows of
+      the prompt (``ssm_seq`` or mode None, whole parameters of which
+      each rank takes its placement), then ``make_decode_step`` over the
+      mesh on the cache the prefill returned, one step a column of
+      ``tokens``: the prefill's logits and the same block of the no-mesh
+      prefill's (the rank's rows, and the vocab block of
+      ``logits_pspec`` in mode None; the vocab whole under ``ssm_seq``),
+      per cache leaf after the prefill (its block, the same block of the
+      no-mesh prefill's cache under ``cache_pspecs``), the decode's
+      logits (rows x steps x vocab) and the fill level after them.
     Returns {name: result}, and the rank's batch rows."""
     from repro_torch import configs as C
     from repro_torch import weights
@@ -464,6 +518,9 @@ def tensor_parallel(rank, world, tmp, cases):
     out = {}
     for name, (kind, arch, over, inputs) in cases.items():
         cfg = C.reduced(C.get(arch), **F32, **over)
+        if kind == "chain":
+            out[name] = _chain(cfg, mesh, *inputs)
+            continue
         if kind == "train":
             np_params, batch = inputs
             p = placed(cfg, weights.lm_params_from_numpy(np_params, "cpu"))

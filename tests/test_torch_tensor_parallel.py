@@ -121,6 +121,16 @@ def spawned(tmp_path_factory):
         cases[name] = ("decode", "minitron-4b", over, (npp, toks, env))
         want[name] = np.asarray(JT.forward(
             jcfg, jp, {"tokens": jnp.asarray(toks)})[0])
+    # the mamba families in mode None: 8 heads over 4 ranks, 2 heads (the
+    # channels split, every head on every rank), every leaf whole (130
+    # channels), and the hybrid (its shared block on its attention heads)
+    for name, (arch, over) in MAMBA.items():
+        jcfg, jp, npp = reference_params(arch, **over)
+        batch = {"tokens": tokens(jcfg, (8, 16), 9),
+                 "labels": tokens(jcfg, (8, 16), 10)}
+        cases[name] = ("train", arch, over, (npp, batch))
+        want[name] = (None, no_mesh_loss(arch, over, npp, batch),
+                      reference_grads(jcfg, jp, batch))
     # MoE: 4 experts, one a model rank; capacity 1.0 so that some drop
     over = {"capacity_factor": 1.0}
     jcfg, jp, npp = reference_params("olmoe-1b-7b", **over)
@@ -151,6 +161,20 @@ def spawned(tmp_path_factory):
 
 
 NO_SPLITKV = {"REPRO_NO_SPLITKV": "1"}
+MAMBA = {"mamba2": ("mamba2-780m", {}),
+         "mamba2_h2": ("mamba2-780m", {"mamba_headdim": 64}),
+         "mamba2_whole": ("mamba2-780m", {"d_model": 65,
+                                          "mamba_headdim": 13}),
+         "zamba2": ("zamba2-1.2b", {})}
+
+
+def no_mesh_loss(arch, over, npp, batch) -> float:
+    """The port's no-mesh ``train_loss`` on the whole batch."""
+    cfg = C.reduced(C.get(arch), **H.F32, **over)
+    p = weights.lm_params_from_numpy(npp, "cpu")
+    with torch.no_grad():
+        return float(T.train_loss(cfg, p, {k: torch.from_numpy(v)
+                                           for k, v in batch.items()})[0])
 
 
 def no_mesh_per_data_shard(arch, over, npp, batch):
@@ -205,7 +229,7 @@ def test_train_step_on_rank_blocks(spawned, kv):
 
 
 @pytest.mark.parametrize("name", ["train_kv4", "train_kv2", "moe",
-                                  "vlm_train"])
+                                  "vlm_train", *MAMBA])
 def test_gradient_of_each_leaf(spawned, name):
     """Each leaf's gradient of the mesh step (the rank's blocks, summed
     over every axis the leaf is replicated along, gathered whole) within
@@ -218,6 +242,22 @@ def test_gradient_of_each_leaf(spawned, name):
     want, ranks = result(spawned, name)
     for (_, _, got), _ in ranks:
         close_grads(got, want[-1][1])
+
+
+@pytest.mark.parametrize("name", list(MAMBA))
+def test_mamba_train_step_on_rank_blocks(spawned, name):
+    """A mode-None training step of reduced mamba2-780m and zamba2-1.2b
+    (the mode the dry-run takes under ``REPRO_NO_SEQP=1``), each mamba
+    layer on the rank's heads and channels (or whole), the hybrid's
+    shared block on its attention heads: every rank's loss within 1e-5
+    of the reference's ``train_loss`` and of the port's no-mesh loss on
+    the same batch, and the gradient norm within 1e-4 relative of the
+    reference's (each leaf: :func:`test_gradient_of_each_leaf`)."""
+    (_, alone, (loss, _, gnorm)), ranks = result(spawned, name)
+    for (_, met, _), _ in ranks:
+        assert abs(met["loss"] - loss) < 1e-5
+        assert abs(met["loss"] - alone) < 1e-5
+        assert abs(met["grad_norm"] - gnorm) <= 1e-4 * gnorm
 
 
 def max_diff(a_tree, b_tree) -> float:
