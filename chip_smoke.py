@@ -314,8 +314,10 @@ Phases (any failure exits non-zero; nothing is caught):
     child processes on the CPU (started after (a), run beside (c)):
     ``python -m repro_torch.launch.dryrun --both-meshes`` on qwen2-1.5b
     ``train_4k``, mamba2-780m ``long_500k``, the split-KV qwen2-1.5b
-    ``decode_32k`` and deepseek-7b ``decode_32k`` (its cache by KV heads,
-    202 / 105 GB a rank while every cache leaf was gathered whole): each
+    ``decode_32k``, deepseek-7b ``decode_32k`` (its cache by KV heads,
+    202 / 105 GB a rank while every cache leaf was gathered whole),
+    zamba2-1.2b ``long_500k`` and the ``ssm_seq`` mamba2-780m
+    ``prefill_32k`` (each mamba block on the rank's whole span): each
     record's roofline row, collective bytes, peak bytes and
     ``fits_hbm``; fails on an ``error`` record, and unless deepseek-7b's
     two records fit.  (c) The
@@ -468,7 +470,8 @@ ENERGY_SECONDS = 5.0      # phase 21 (a): each kernel's loop under sample_power
 ENERGY_K1_CALLS = 200     # K1 launches a sampled call (one sync each)
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("mamba2-780m", "long_500k"),
                 ("qwen2-1.5b", "decode_32k"),   # phase 21 (b), both meshes
-                ("deepseek-7b", "decode_32k"), ("zamba2-1.2b", "long_500k"))
+                ("deepseek-7b", "decode_32k"), ("zamba2-1.2b", "long_500k"),
+                ("mamba2-780m", "prefill_32k"))
 # cells over 80 GiB a rank before the mesh path computed on a rank's blocks
 DRYRUN_MUST_FIT = (("deepseek-7b", "decode_32k"),)
 PHASE21_TIMEOUT_S = 300   # each child process of phase 21

@@ -396,8 +396,12 @@ def build_cell(arch: str, shape_name: str, mesh, *, cfg=None, shape=None):
     """-> (step, args, argument_bytes) for one cell: ``args`` are the
     step's inputs as ``meta`` stand-ins, rank 0's blocks placed as the
     specs say (the reference's ``in_shardings``); ``argument_bytes`` is
-    their sum over rank 0's blocks.  ``cfg`` / ``shape`` replace the
-    named config and shape (a reduced model on a small mesh)."""
+    their sum over rank 0's blocks.  A sequence-parallel prefill takes
+    rank 0's rows with the whole sequence and cuts its span itself, as
+    the reference's jitted step sees the global sequence; its
+    ``argument_bytes`` still count the ``in_shardings`` blocks (the span).
+    ``cfg`` / ``shape`` replace the named config and shape (a reduced
+    model on a small mesh)."""
     cfg = cfg or configs.get(arch)
     shape = shape or SHAPES[shape_name]
     mode = sh.parallel_mode(cfg, shape, mesh)
@@ -424,8 +428,10 @@ def build_cell(arch: str, shape_name: str, mesh, *, cfg=None, shape=None):
     if shape.kind == "prefill":
         step = registry.make_prefill_step(cfg, shape, mesh=mesh,
                                           seq_parallel=seqp)
+        # the step takes rank 0's rows and cuts its own span
+        rows = sh.batch_pspecs(cfg, shape, mesh, seq_parallel=False)
         args = (_dtensors(aparams, pspecs, mesh),
-                _blocks(batch_sds, batch_specs, mesh))
+                _blocks(batch_sds, rows, mesh))
         return step, args, _local_bytes(aparams, pspecs, mesh) + batch_bytes
 
     # decode

@@ -288,23 +288,33 @@ def mamba_apply_seq(p, xin, cfg, *, mesh, axis: str = "model",
     """The block over this rank's span ``xin`` (B, S_loc, D) of a sequence
     split over ``axis`` in rank order.  Returns (out, {"ssm": the GLOBAL
     final state (the same on every rank), "conv": the global tail (the
-    last rank's)}).  Differentiable through its collectives."""
+    last CONV_W - 1 inputs of the whole sequence)}).  A span shorter than
+    the conv halo gathers every rank's raw conv inputs, so the context
+    reaches back over as many ranks as it needs (the reference's takes
+    the previous rank's span alone: ROADMAP C9).  Differentiable through
+    its collectives."""
     b, s, _ = xin.shape
     d_inner, pdim, n_heads, g, n = mamba_dims(cfg)
     cd = compute_dtype
     nsh, me = M.axis_size(mesh, axis), M.axis_index(mesh, axis)
 
     z, xr, Br, Cr, dt = _projections(p, xin, cd)
-    tails = {"x": _conv_tail(xr), "B": _conv_tail(Br), "C": _conv_tail(Cr)}
-
-    def conv_sp(t, wname, bname):
-        ctx = M.shift_next(_conv_tail(t), mesh, axis)
-        return _silu(_conv_with_context(t, ctx, p[wname].to(cd),
-                                        p[bname].to(cd)))
-
-    xr = conv_sp(xr, "conv_x", "conv_x_b")
-    Br = conv_sp(Br, "conv_B", "conv_B_b")
-    Cr = conv_sp(Cr, "conv_C", "conv_C_b")
+    raw = {"x": xr, "B": Br, "C": Cr}
+    short = s < CONV_W - 1
+    if short:
+        # every rank's raw rows: a rank's context is the last CONV_W - 1
+        # rows of the spans before its own, the global tail the last
+        # CONV_W - 1 rows of all of them
+        whole = {k: M.all_gather(t, mesh, axis, 1) for k, t in raw.items()}
+        ctx = {k: _conv_tail(t[:, :me * s]) for k, t in whole.items()}
+        tails = {k: _conv_tail(t) for k, t in whole.items()}
+    else:
+        ctx = {k: M.shift_next(_conv_tail(t), mesh, axis)
+               for k, t in raw.items()}
+        tails = {k: _conv_tail(t) for k, t in raw.items()}
+    xr, Br, Cr = (_silu(_conv_with_context(
+        raw[k], ctx[k], p[f"conv_{k}"].to(cd), p[f"conv_{k}_b"].to(cd)))
+        for k in ("x", "B", "C"))
     x = xr.reshape(b, s, n_heads, pdim)
     B = Br.reshape(b, s, g, n)
     C = Cr.reshape(b, s, g, n)
@@ -330,10 +340,11 @@ def mamba_apply_seq(p, xin, cfg, *, mesh, axis: str = "model",
     y = y.reshape(b, s, d_inner)
     y = L.rmsnorm_apply(p["gn"], y * _silu(z), cfg.norm_eps)
     out = L.dense_apply(p["out_proj"], y, compute_dtype=cd)
-    # the global conv tail is the last rank's: masked, then summed
-    last = me == nsh - 1
-    tails = {k: M.psum(t if last else torch.zeros_like(t), mesh, axis)
-             for k, t in tails.items()}
+    if not short:
+        # the global conv tail is the last rank's: masked, then summed
+        last = me == nsh - 1
+        tails = {k: M.psum(t if last else torch.zeros_like(t), mesh, axis)
+                 for k, t in tails.items()}
     return out, {"ssm": run, "conv": tails}
 
 

@@ -399,8 +399,15 @@ def _attn_block(cfg, mesh, bp, spec, x, positions, *, window=None,
 # ---------------------------------------------------------------------------
 
 def _seq_span(x, mesh):
-    """This rank's span of the sequence (dim 1), split over ``model``."""
-    s_loc = x.shape[1] // mesh_lib.tp_size(mesh)
+    """This rank's span of the sequence (dim 1), split over ``model``.
+    Raises ``ValueError`` where ``model`` does not divide the sequence,
+    as the reference's ``shard_map`` does."""
+    tp = mesh_lib.tp_size(mesh)
+    if x.shape[1] % tp:
+        raise ValueError(f"sequence parallelism: the sequence length "
+                         f"{x.shape[1]} is not evenly divisible by the "
+                         f"mesh's 'model' axis of size {tp}")
+    s_loc = x.shape[1] // tp
     return x.narrow(1, mesh_lib.axis_index(mesh, "model") * s_loc, s_loc)
 
 

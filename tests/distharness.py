@@ -435,6 +435,70 @@ def _chain(cfg, mesh, np_params, prompt, toks, seq_parallel, max_len):
             np.stack(steps, 1), cache["len"])
 
 
+def short_spans(rank, world, tmp, spans, ragged):
+    """Over a (1, 4) (data, model) mesh, whole parameters on every rank.
+    For each (arch, parameters, [(prompt, tokens, cache length)]) of
+    ``spans``, per prompt (a span a rank of 1, 2, ... positions): the
+    sequence-parallel ``forward`` logits and the no-mesh ones, the
+    sequence-parallel prefill and mesh decode of :func:`_chain`, and the
+    gradient of the sequence-parallel ``train_loss`` on the prompt
+    (summed over the ranks) beside the no-mesh one, leaf by leaf.  For
+    each (arch, parameters, batch) of ``ragged`` (a sequence ``model``
+    does not divide): the name of the exception each of ``forward``,
+    ``prefill`` and ``train_loss`` raises under ``seq_parallel=True``,
+    or None, and its message."""
+    from repro_torch import configs as C
+    from repro_torch import weights
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import tree_leaves, tree_map
+    mesh = M.make_host_mesh(data=1, model=4)
+    out = {}
+    for arch, np_params, prompts in spans:
+        cfg = C.reduced(C.get(arch), **F32)
+        p = weights.lm_params_from_numpy(np_params, "cpu")
+        runs = []
+        for prompt, toks, max_len in prompts:
+            b = {"tokens": torch.from_numpy(prompt)}
+            with torch.no_grad():
+                sp = T.forward(cfg, p, b, mesh=mesh, seq_parallel=True)[0]
+                plain = T.forward(cfg, p, b)[0]
+            grads = []
+            for on_mesh in (True, False):
+                live = tree_map(lambda t: t.clone().requires_grad_(), p)
+                loss = T.train_loss(cfg, live, dict(b, labels=b["tokens"]),
+                                    mesh=mesh if on_mesh else None,
+                                    seq_parallel=on_mesh)[0]
+                g = torch.autograd.grad(loss / (world if on_mesh else 1),
+                                        list(tree_leaves(live)))
+                grads.append([_np(M.psum(t, mesh, "model") if on_mesh
+                                  else t) for t in g])
+            runs.append((_np(sp), _np(plain),
+                         _chain(cfg, mesh, np_params, prompt, toks, True,
+                                max_len), grads))
+        out[arch] = runs
+    raised = {}
+    for arch, np_params, batch in ragged:
+        cfg = C.reduced(C.get(arch), **F32)
+        p = weights.lm_params_from_numpy(np_params, "cpu")
+        b = {k: torch.from_numpy(v) for k, v in batch.items()}
+        entries = {
+            "forward": lambda: T.forward(cfg, p, {"tokens": b["tokens"]},
+                                         mesh=mesh, seq_parallel=True),
+            "prefill": lambda: T.prefill(cfg, p, {"tokens": b["tokens"]},
+                                         mesh=mesh, seq_parallel=True),
+            "train_loss": lambda: T.train_loss(cfg, p, b, mesh=mesh,
+                                               seq_parallel=True)}
+        for name, call in entries.items():
+            try:
+                with torch.no_grad():
+                    call()
+                raised[(arch, name)] = (None, "")
+            except Exception as e:  # noqa: BLE001 - the test reads its kind
+                raised[(arch, name)] = (type(e).__name__, str(e))
+    return out, raised
+
+
 @contextlib.contextmanager
 def _env(switches: dict):
     """The environment with ``switches`` set, restored after."""

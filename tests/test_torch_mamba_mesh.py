@@ -9,9 +9,13 @@ the mesh decode the rank's blocks of the cache as ``cache_pspecs`` places
 them, in mode None and under sequence parallelism (``ssm_seq``); the
 decode takes them with no cut by hand.  On a fake 2 x 4 mesh
 (``launch.dryrun``) rank 0's training step and prefill in mode None
-gather no parameter over ``model``, and a mode-None prefill traces with
-the SSD scan's work counted.  The mode-None training step's loss and
-gradients are held in ``tests/test_torch_tensor_parallel.py``."""
+gather no parameter over ``model``, a mode-None prefill traces with the
+SSD scan's work counted, and an ``ssm_seq`` prefill cell runs each mamba
+block on the rank's whole span.  Over a (1, 4) mesh of 4 ``gloo`` ranks
+a rank's span shorter than the conv halo computes the model's function
+(the reference's does not: ROADMAP C9), and a sequence that ``model``
+does not divide raises in both packages.  The mode-None training step's
+loss and gradients are held in ``tests/test_torch_tensor_parallel.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,12 +33,13 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import mamba2 as S
 from repro_torch.models import registry
 from repro_torch.pytree import tree_leaves
 from test_torch_dryrun import ModelGathers
 
-# a prompt of 16 positions: 4 a rank under ssm_seq, at least the conv
-# halo of 3 that the sequence-parallel block takes from its predecessor
+# a prompt of 16 positions: 4 a rank under ssm_seq (the spans shorter
+# than the conv halo of 3 are test_short_spans_compute_the_model's)
 PROMPT, DECODE, MAX_LEN = 16, 3, 20
 
 # (arch, overrides): heads that divide ``model`` (8 heads over 4 ranks),
@@ -255,3 +260,156 @@ def test_kernel_wrapper_meta_branch_has_no_storage():
         assert (m.shape, m.dtype) == (c.shape, c.dtype)
     want = K.plain(x, dt, A, B, C_, chunk=16)
     assert all(torch.equal(a, b) for a, b in zip(cpu, want))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_seq_prefill_cell_traces_the_rank_span(fake_mesh, arch,
+                                                   monkeypatch):
+    """A reduced ``prefill_32k``-kind cell (64 tokens, batch 4) under
+    ``ssm_seq``, built by ``build_cell`` and traced on the fake 2 x 4 mesh
+    as rank 0: every ``mamba_apply_seq`` receives the rank's 2 rows over
+    its span of 64 / 4 = 16 positions (the step gets the rows with the
+    whole sequence and cuts the span once), and the step's logits cover
+    all 64 positions.  ``argument_bytes`` count the reference's
+    ``in_shardings`` blocks, the span."""
+    cfg = C.reduced(C.get(arch), **H.F32)
+    shape = ShapeConfig("prefill_32k", 64, 4, "prefill")
+    assert sh.parallel_mode(cfg, shape, fake_mesh) == "ssm_seq"
+    seen = []
+
+    def spy(p, xin, *a, **kw):
+        seen.append(tuple(xin.shape))
+        return apply_seq(p, xin, *a, **kw)
+    apply_seq = S.mamba_apply_seq
+    monkeypatch.setattr(S, "mamba_apply_seq", spy)
+    step, args, arg_bytes = D.build_cell(arch, "prefill_32k", fake_mesh,
+                                         cfg=cfg, shape=shape)
+    assert tuple(args[1]["tokens"].shape) == (2, 64)
+    logits = []
+
+    def traced(*a):
+        out = step(*a)
+        logits.append(tuple(out[0].shape))
+        return out
+    D.trace_step(traced, args, fake_mesh)
+    assert seen == [(2, 16, cfg.d_model)] * cfg.num_layers
+    assert logits == [(2, 64, cfg.vocab_size)]
+    params = registry.abstract_params(cfg)
+    want = D._local_bytes(params, sh.param_pspecs(
+        params, fake_mesh, mode="ssm_seq", cfg=cfg), fake_mesh) + 2 * 16 * 4
+    assert arg_bytes == want
+
+
+SPANS = (1, 2, 3, 4)        # a rank's span over ``model`` = 4
+SPAN_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+RAGGED_ARCHS = ("deepseek-7b", "mamba2-780m", "zamba2-1.2b")
+
+
+def span_case(jcfg, jp, rng, span):
+    """(prompt (2, 4 x span), 3 decode tokens, cache length) and the
+    reference's plain ``forward`` logits over the prompt and the tokens."""
+    prompt = rng.integers(0, jcfg.vocab_size, (2, 4 * span)).astype(np.int32)
+    toks = rng.integers(0, jcfg.vocab_size, (2, DECODE)).astype(np.int32)
+    seq = jnp.asarray(np.concatenate([prompt, toks], 1))
+    full = np.asarray(JT.forward(jcfg, jp, {"tokens": seq})[0])
+    return (prompt, toks, 4 * span + 4), full
+
+
+@pytest.fixture(scope="module")
+def short_spans(tmp_path_factory):
+    """One 4-rank spawn (``H.short_spans``): every span of SPANS for each
+    arch of SPAN_ARCHS, and a 14-token batch for each of RAGGED_ARCHS;
+    beside it, the reference's own results on a (1, 4) mesh of host
+    devices in this process."""
+    mesh = jax.make_mesh((1, 4), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    spans, ragged, ref = [], [], {}
+    rng = np.random.default_rng(23)
+    for arch in SPAN_ARCHS:
+        jcfg, jp, npp = reference_params(arch)
+        fwd = jax.jit(lambda p, b, jcfg=jcfg: JT.forward(
+            jcfg, p, b, mesh=mesh, seq_parallel=True)[0])
+        cases = []
+        for span in SPANS:
+            case, full = span_case(jcfg, jp, rng, span)
+            b = {"tokens": jnp.asarray(case[0])}
+            ref[(arch, span)] = (np.asarray(fwd(jp, b)),
+                                 np.asarray(JT.forward(jcfg, jp, b)[0]), full)
+            cases.append(case)
+        spans.append((arch, npp, cases))
+    for arch in RAGGED_ARCHS:
+        jcfg, jp, npp = reference_params(arch)
+        toks = rng.integers(0, jcfg.vocab_size, (2, 14)).astype(np.int32)
+        ragged.append((arch, npp, {"tokens": toks, "labels": toks}))
+        try:
+            jax.jit(lambda p, b, jcfg=jcfg: JT.forward(
+                jcfg, p, b, mesh=mesh, seq_parallel=True)[0])(
+                jp, {"tokens": jnp.asarray(toks)})
+            ref[arch] = None
+        except ValueError as e:
+            ref[arch] = str(e)
+    got = H.run(H.short_spans, 4, tmp_path_factory.mktemp("spans"), spans,
+                ragged)
+    return ref, got
+
+
+@pytest.mark.parametrize("arch", SPAN_ARCHS)
+def test_short_spans_compute_the_model(short_spans, arch):
+    """A rank's span of 1, 2, 3 and 4 positions over ``model`` = 4, reduced
+    ``arch`` in float32 from the reference's init.  The port's
+    sequence-parallel ``forward`` is within 1e-5 of its no-mesh
+    ``forward`` at every span; the sequence-parallel prefill's cache
+    blocks (the global conv tails, SSM states and shared-block K/V)
+    within 1e-5 of the no-mesh prefill's; three mesh decode steps after
+    it within 1e-3 of the reference's ``forward`` over the prompt and the
+    tokens; the sequence-parallel ``train_loss``'s gradient, summed over
+    the ranks, within 1e-4 x max|g| of the no-mesh one, leaf by leaf.
+    The reference's jitted sequence-parallel ``forward`` takes a rank's
+    conv context from its predecessor's span alone (ROADMAP C9):
+    at spans 1 and 2 it differs from its own plain ``forward`` by more
+    than 1e-2 from the first position whose halo reaches back past the
+    predecessor (2 and 4), and agrees within 1e-5 before it; at spans 3
+    and 4 it is within 1e-5 of the port's."""
+    ref, ranks = short_spans
+    for span in SPANS:
+        ref_sp, ref_plain, full = ref[(arch, span)]
+        s = 4 * span
+        first = {1: 2, 2: 4}.get(span)
+        err = np.abs(ref_sp - ref_plain).max(axis=(0, 2))
+        if first is None:
+            assert err.max() < 1e-5, (span, err)
+        else:
+            assert err[:first].max() < 1e-5, (span, err)
+            assert err[first:].max() > 1e-2, (span, err)
+        for out, _ in ranks:
+            sp, plain, (logits, alone, blocks, steps, fill), grads = \
+                out[arch][span - 1]
+            np.testing.assert_allclose(sp, plain, rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(logits, alone, rtol=1e-5, atol=1e-5)
+            if first is None:
+                np.testing.assert_allclose(sp, ref_sp, rtol=1e-5,
+                                           atol=1e-5)
+            for got, want in blocks:
+                assert got.shape == want.shape
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+            assert fill == s + DECODE
+            assert np.abs(steps - full[:, s:]).max() < 1e-3
+            for g, want in zip(*grads):
+                assert np.abs(g - want).max() <= 1e-4 * max(
+                    np.abs(want).max(), 1e-6), span
+
+
+@pytest.mark.parametrize("arch", RAGGED_ARCHS)
+def test_sequence_model_does_not_divide_raises(short_spans, arch):
+    """A 14-token batch over ``model`` = 4: the port's ``forward``,
+    ``prefill`` and ``train_loss`` under ``seq_parallel=True`` each raise
+    ``ValueError`` naming the length and the axis size, on every rank
+    (no truncated result), as the reference's jitted ``forward`` raises
+    from its ``shard_map``."""
+    ref, ranks = short_spans
+    assert ref[arch] is not None and "not evenly divisible" in ref[arch]
+    for _, raised in ranks:
+        for entry in ("forward", "prefill", "train_loss"):
+            kind, msg = raised[(arch, entry)]
+            assert kind == "ValueError", (entry, kind, msg)
+            assert "14" in msg and "size 4" in msg
