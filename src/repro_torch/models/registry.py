@@ -46,6 +46,7 @@ import torch
 from repro_torch.compress.tree import dequantize_tree
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import mesh as M
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.pytree import tree_leaves, tree_map
 from repro_torch.train import optimizer as opt_mod
 from . import layers as L
@@ -129,27 +130,40 @@ def abstract_opt(cfg: ModelConfig, acfg: opt_mod.AdamConfig):
 
 
 def make_train_step(cfg: ModelConfig, acfg: opt_mod.AdamConfig, mesh=None,
-                    seq_parallel: bool = False):
+                    seq_parallel: bool = False, tracer=None):
     """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the gradient of ``transformer.train_loss`` and one
     ``optimizer.update``, which writes the given parameters and state in
     place (the reference's jitted step donates both).  ``metrics``: the
     loss and the loss's own metrics, ``grad_norm`` and ``lr``, as 0-dim
-    tensors on the parameters' device.  With a ``mesh``, see
-    :func:`_sharded_train_step`."""
+    tensors on the parameters' device.  ``tracer``
+    (:class:`repro_torch.obs.Tracer`): the host time of each step's
+    forward, backward and update as ``train.forward``, ``train.backward``
+    and ``train.update`` spans.  With a ``mesh``, see
+    :func:`_sharded_train_step` (no spans)."""
     _need_mesh(mesh, seq_parallel=seq_parallel)
     if mesh is not None:
+        if tracer is not None:
+            raise ValueError("the training step's spans are recorded on "
+                             "one device: pass no tracer with a mesh")
         return _sharded_train_step(cfg, acfg, mesh, seq_parallel)
+    tr = NULL_TRACER if tracer is None else tracer
 
     def train_step(params, opt_state, batch):
+        t0 = tr.t()
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, metrics = T.train_loss(cfg, live, batch)
+        tr.rec("train.forward", t0)
+        t0 = tr.t()
         leaves = list(tree_leaves(live))
         grads = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _: next(grads), live)
         del live, leaves
+        tr.rec("train.backward", t0)
+        t0 = tr.t()
         params, opt_state, om = opt_mod.update(params, grads, opt_state,
                                                acfg)
+        tr.rec("train.update", t0)
         return params, opt_state, _metrics(loss, metrics, om)
     return train_step
 

@@ -67,6 +67,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.pytree import tree_map
 from . import attention as A
 from . import layers as L
@@ -235,7 +236,7 @@ def _remat(cfg, train: bool, fn, *args):
 
 def _stacked_forward(cfg, params, x, positions, *, window=None,
                      train: bool = False, mesh=None, seq_parallel=False,
-                     specs=None, cache_len=None):
+                     specs=None, cache_len=None, tracer=NULL_TRACER):
     """Every block in turn.  Returns (x, aux, caches): K/V stacked as (L,
     B, S, KV, hd) (dense; (n_groups, ...) for the hybrid's shared block),
     SSM states as (L, B, H, N, P) and conv tails as (L, B, 3, width).
@@ -245,7 +246,9 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
     :func:`_attn_block`s; over a ``mesh`` each layer's K/V is cut to the
     rank's block of a cache of ``cache_len`` positions (the sequence's
     own length by default) as soon as the layer has made it
-    (:func:`_kv_block`)."""
+    (:func:`_kv_block`).  ``tracer``: each layer's host time as a
+    ``model.mamba`` or ``model.attn`` span, and each SSD scan call's as
+    ``model.ssd``."""
     if seq_parallel:
         return _seq_parallel_forward(cfg, mesh, params, x, positions,
                                      window=window, train=train, specs=specs,
@@ -256,11 +259,13 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
     if not cfg.uses_mamba:
         bspec = _sub(specs, "blocks")
         for bp in blocks:
+            t0 = tracer.t()
             x, a, kv = _remat(cfg, train, lambda x, bp=bp: _attn_block(
                 cfg, mesh, bp, bspec, x, positions, window=window,
                 emit_cache=not train), x)
             if not train:
                 kv = _kv_blocks(cfg, mesh, kv, cache_len)
+            tracer.rec("model.attn", t0)
             aux = {n: aux[n] + a[n] for n in aux}
             if not train:
                 ks.append(kv[0])
@@ -269,16 +274,19 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
             return x, aux, None
         return x, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
     states = []
-    impl = S.ssd_chunked if train else None
+    impl = S.ssd_chunked if train else _traced_scan(tracer)
     bspec = _sub(specs, "blocks")
     sspec = _sub(specs, "shared") if cfg.family == "hybrid" else None
     for i, bp in enumerate(blocks):
+        t0 = tracer.t()
         x, st = _remat(cfg, train, lambda x, bp=bp: _mamba_block(
             cfg, bp, x, impl, mesh, bspec), x)
         if not train:
             states.append(_state_block(cfg, mesh, st))
+        tracer.rec("model.mamba", t0)
         if _shared_after(cfg, i):
             # the hybrid's shared block runs as an attention block
+            t0 = tracer.t()
             x, _, kv = _remat(cfg, train, lambda x: _attn_block(
                 cfg, mesh, params["shared"], sspec, x, positions,
                 window=window, emit_cache=not train), x)
@@ -286,9 +294,24 @@ def _stacked_forward(cfg, params, x, positions, *, window=None,
                 k, v = _kv_blocks(cfg, mesh, kv, cache_len)
                 ks.append(k)
                 vs.append(v)
+            tracer.rec("model.attn", t0)
     if train:
         return x, aux, None
     return x, aux, _mamba_caches(cfg, states, ks, vs)
+
+
+def _traced_scan(tracer):
+    """The SSD scan kernel's entry point, each call a ``model.ssd`` span
+    on ``tracer``; None (the default scan) without one."""
+    if not tracer.enabled:
+        return None
+
+    def scan(*args, **kw):
+        t0 = tracer.t()
+        out = ssd_ops.ssd_scan(*args, **kw)
+        tracer.rec("model.ssd", t0)
+        return out
+    return scan
 
 
 def _mamba_caches(cfg, states, ks, vs):
@@ -516,13 +539,15 @@ def _seq_parallel_forward(cfg, mesh, params, x, positions, *, window=None,
 
 
 def backbone(cfg, params, batch, *, window=None, train: bool = False,
-             mesh=None, seq_parallel=False, specs=None, cache_len=None):
-    """-> (final normed hidden states, aux, caches, text offset)."""
+             mesh=None, seq_parallel=False, specs=None, cache_len=None,
+             tracer=NULL_TRACER):
+    """-> (final normed hidden states, aux, caches, text offset).
+    ``tracer``: per-layer spans (:func:`_stacked_forward`)."""
     x, positions, off = _embed_inputs(cfg, params, batch, mesh)
     x, aux, caches = _stacked_forward(cfg, params, x, positions,
                                       window=window, train=train, mesh=mesh,
                                       seq_parallel=seq_parallel, specs=specs,
-                                      cache_len=cache_len)
+                                      cache_len=cache_len, tracer=tracer)
     x = L.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return x, aux, caches, off
 
@@ -751,12 +776,14 @@ def _mamba_decode_layer(cfg, bp, cache, i: int, x, active, mesh=None):
 
 
 def _decode_blocks(cfg, params, cache, x, attend, active=None, mesh=None,
-                   specs=None):
+                   specs=None, tracer=NULL_TRACER):
     """Every block of one decode step; ``attend(p, h, ck, cv)`` is the
     attention decode over one layer's K/V cache.  Over a ``mesh`` each
     layer's ``data`` dims are gathered for the layer (the hybrid's shared
     block's at each application), and it runs on the rank's ``model``
-    blocks: its heads (attention, mamba) and its FFN's (:func:`_ffn`)."""
+    blocks: its heads (attention, mamba) and its FFN's (:func:`_ffn`).
+    ``tracer``: each layer's host time as a ``model.mamba`` or
+    ``model.attn`` span."""
     eps = cfg.norm_eps
     bspec = _sub(specs, "blocks")
     for i in range(cfg.num_layers):
@@ -764,7 +791,9 @@ def _decode_blocks(cfg, params, cache, x, attend, active=None, mesh=None,
         if mesh is not None:
             bp = mesh_lib.gather_layer(bp, bspec, mesh)
         if cfg.uses_mamba:
+            t0 = tracer.t()
             x = _mamba_decode_layer(cfg, bp, cache, i, x, active, mesh)
+            tracer.rec("model.mamba", t0)
             if not _shared_after(cfg, i):
                 continue
             bp, gi = params["shared"], (i + 1) // cfg.attn_every - 1
@@ -772,11 +801,13 @@ def _decode_blocks(cfg, params, cache, x, attend, active=None, mesh=None,
                 bp = mesh_lib.gather_layer(bp, _sub(specs, "shared"), mesh)
         else:
             gi = i
+        t0 = tracer.t()
         h = L.rmsnorm_apply(bp["ln1"], x, eps)
         h, _, _ = attend(bp["attn"], h, cache["k"][gi], cache["v"][gi])
         x = x + h
         y = L.rmsnorm_apply(bp["ln2"], x, eps)
         x = x + _ffn(cfg, bp, y, decode=True, mesh=mesh)[0]
+        tracer.rec("model.attn", t0)
     return L.rmsnorm_apply(params["final_norm"], x, eps)
 
 
@@ -845,14 +876,16 @@ def reset_cache_slot(cfg, cache, slot: int):
 
 
 def prefill_into_slot(cfg, params, cache, batch, slot: int, *, window=None,
-                      return_hidden=False):
+                      return_hidden=False, tracer=NULL_TRACER):
     """Prefill ONE sequence (leading batch dim 1) and write its caches into
     row ``slot`` of a slotted cache, in place, leaving the other rows as
     they are: K/V up to the prompt's length, the SSM state and conv tail
     whole.  Returns ``(logits (1, s, V) float32, cache)``, or the final
     normed hidden states ``(1, s, D)`` with ``return_hidden=True`` (the
-    quantized-head engine applies its own head)."""
-    x, _, caches, off = backbone(cfg, params, batch, window=window)
+    quantized-head engine applies its own head).  ``tracer``: per-layer
+    spans (:func:`_stacked_forward`)."""
+    x, _, caches, off = backbone(cfg, params, batch, window=window,
+                                 tracer=tracer)
     out = x if return_hidden else _logits(cfg, params, x, off)
     s = x.shape[1]                       # a vlm's patch positions included
     _write_caches(cache, caches, slice(slot, slot + 1), s)
@@ -861,7 +894,8 @@ def prefill_into_slot(cfg, params, cache, batch, slot: int, *, window=None,
 
 
 def decode_step_slotted(cfg, params, cache, tokens, active=None, *,
-                        window=None, return_hidden=False):
+                        window=None, return_hidden=False,
+                        tracer=NULL_TRACER):
     """One decode tick over a slotted cache.  tokens: (S, 1) ->
     ``(logits (S, 1, V) float32, cache)``, or the final normed hidden
     states ``(S, 1, D)`` with ``return_hidden=True``.
@@ -870,7 +904,8 @@ def decode_step_slotted(cfg, params, cache, tokens, active=None, *,
     bool; inactive slots keep their cache rows (K/V, SSM state, conv tail)
     and ``pos`` bit for bit (their outputs are computed and discarded, so
     a tick has one shape whatever the occupancy).  Audio has no decode
-    path and raises ``ValueError``."""
+    path and raises ``ValueError``.  ``tracer``: per-layer spans
+    (:func:`_decode_blocks`)."""
     if cfg.family == "audio":
         raise ValueError(f"no slotted decode path for family "
                          f"{cfg.family!r}")
@@ -884,7 +919,7 @@ def decode_step_slotted(cfg, params, cache, tokens, active=None, *,
                        A.attn_decode_slotted(p, h, ck, cv, pos, cfg,
                                              active=active, window=window,
                                              compute_dtype=cfg.cdtype),
-                       active)
+                       active, tracer=tracer)
     cache = dict(cache, pos=pos + active.to(torch.int32))
     if return_hidden:
         return x, cache

@@ -6,8 +6,9 @@ span ring (the exact pre-crash tick phases, in order) with the last N
 stream-event summaries per shard, and dumps both as one typed artifact
 the moment ``FleetEngine.crash_shard`` runs.
 
-Determinism contract: ``dumps(deterministic=True)`` strips wall-clock
-span fields and serializes with sorted keys, so two identical runs under
+Determinism contract: ``dumps(deterministic=True)`` keeps each span's
+deterministic fields alone (``trace.DETERMINISTIC_FIELDS``) and
+serializes with sorted keys, so two identical runs under
 the same ``ScheduledFaults`` (reference package ``repro.serve.fleet.faults``) schedule
 produce **byte-identical** crash dumps — asserted across the full
 phase x shard crash matrix in ``tests/test_obs.py`` and recorded in
@@ -25,7 +26,7 @@ import json
 from collections import deque
 from typing import Any
 
-from .trace import NullTracer, Tracer
+from .trace import DETERMINISTIC_FIELDS, NullTracer, Tracer
 
 #: Per-shard cap on retained (stream_id, kind, step) event triples.
 DEFAULT_EVENTS_PER_SHARD = 64
@@ -120,7 +121,6 @@ class FlightRecorder:
     @staticmethod
     def _strip(dump: dict) -> dict:
         out = dict(dump)
-        out["trace"] = [{k: v for k, v in rec.items()
-                         if k not in ("t0_us", "dur_us")}
+        out["trace"] = [{k: rec[k] for k in DETERMINISTIC_FIELDS}
                         for rec in dump["trace"]]
         return out

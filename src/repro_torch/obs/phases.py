@@ -40,9 +40,19 @@ VERIFY_PHASES = (
     "verify.numerics",
 )
 
+#: The port's own phases: the LM engine's model call (serve/engine.py),
+#: the per-layer spans it records while ``Tracer.detail`` is on
+#: (models/transformer.py), and the training step's three parts
+#: (models/registry.py).
+PORT_PHASES = (
+    "lm.forward", "model.mamba", "model.ssd", "model.attn",
+    "train.forward", "train.backward", "train.update",
+)
+
 #: Every registered span phase.
 PHASES: frozenset[str] = frozenset(
-    ENGINE_PHASES + FLEET_PHASES + LM_PHASES + SCHED_PHASES + VERIFY_PHASES)
+    ENGINE_PHASES + FLEET_PHASES + LM_PHASES + SCHED_PHASES + VERIFY_PHASES
+    + PORT_PHASES)
 
 
 def registered(phase: str) -> bool:

@@ -23,14 +23,24 @@ Two views of the recorded spans:
   ``capacity`` durations of every phase into count / total / p50 / p99 /
   max (the latency-breakdown surface ``BENCH_obs.json`` publishes).
 * **The flight ring** — one chronological ring over *all* spans
-  (sequence number, fleet tick, phase, shard, start, duration).
-  ``flight()`` returns its tail: the exact pre-crash phase history the
-  :class:`repro_torch.obs.flight.FlightRecorder` dumps on ``crash_shard``.
+  (sequence number, fleet tick, phase, shard, start, duration, and the
+  caller's request id and count).  ``flight()`` returns its tail: the
+  exact pre-crash phase history the
+  :class:`repro_torch.obs.flight.FlightRecorder` dumps on ``crash_shard``,
+  with each span's enclosing span (``parent``) worked out at read time.
 
-Wall-clock fields (``t0_us`` / ``dur_us``) are intrinsically
-nondeterministic; every exporter that promises byte-stable output
-(``flight(deterministic=True)``, the metrics snapshot) strips them and
-keeps the deterministic skeleton (seq, tick, phase, shard).
+Wall-clock fields (``t0_us`` / ``dur_us``, and ``parent``, which follows
+from them) are intrinsically nondeterministic; every exporter that
+promises byte-stable output (``flight(deterministic=True)``, the metrics
+snapshot) keeps only the deterministic skeleton
+(:data:`DETERMINISTIC_FIELDS`).  ``clock()`` pairs the span clock with
+Unix time, the clock of ``torch.profiler``'s events, so spans and a
+device trace line up.
+
+``detail`` is an operator's switch: while it is True the LM engine also
+records a span per model layer (``model.mamba``, ``model.ssd``,
+``model.attn``).  It is False by default, and the per-tick span count
+then does not depend on the model's depth.
 """
 from __future__ import annotations
 
@@ -38,6 +48,11 @@ import time
 from typing import Any
 
 import numpy as np
+
+from repro_torch.device import clock_pair
+
+#: The fields of a flight record that identical runs reproduce bit for bit.
+DETERMINISTIC_FIELDS = ("seq", "tick", "phase", "shard")
 
 
 class _NullSpan:
@@ -59,13 +74,18 @@ class NullTracer:
     cheap enough for the fused-tick hot path (no timestamps taken, no
     objects allocated)."""
     enabled = False
+    detail = False
     __slots__ = ()
 
     def t(self) -> int:
         return 0
 
-    def rec(self, phase: str, t0: int, shard: int = -1) -> int:
+    def rec(self, phase: str, t0: int, shard: int = -1, *, req=None,
+            n: int = 0) -> int:
         return 0
+
+    def clock(self) -> tuple[int, int]:
+        return (0, 0)
 
     def set_tick(self, tick: int) -> None:
         pass
@@ -119,7 +139,9 @@ class Tracer:
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
-        self._epoch = time.perf_counter_ns()
+        self.detail = False
+        self._clock = clock_pair()
+        self._epoch = self._clock[0]
         self._tick = 0
         # phase interning
         self._phase_ids: dict[str, int] = {}
@@ -137,6 +159,8 @@ class Tracer:
         self._fl_shard = np.full(capacity, -1, np.int32)
         self._fl_t0 = np.zeros(capacity, np.int64)     # ns since epoch
         self._fl_dur = np.zeros(capacity, np.int64)    # ns
+        self._fl_req: list = [None] * capacity         # the caller's objects
+        self._fl_n = np.zeros(capacity, np.int64)
 
     # ------------------------------------------------------------------
     # Hot-path surface
@@ -150,10 +174,13 @@ class Tracer:
         context; called once per tick, not per span)."""
         self._tick = tick
 
-    def rec(self, phase: str, t0: int, shard: int = -1) -> int:
-        """Record a span that started at ``t0`` and ends now.  Returns
-        the span duration in ns (callers layer deadline accounting on
-        top without a second clock read)."""
+    def rec(self, phase: str, t0: int, shard: int = -1, *, req=None,
+            n: int = 0) -> int:
+        """Record a span that started at ``t0`` and ends now, with an
+        optional request id ``req`` (a reference is kept, nothing is
+        copied) and count ``n`` (rows, requests, positions).  Returns the
+        span duration in ns (callers layer deadline accounting on top
+        without a second clock read)."""
         t1 = time.perf_counter_ns()
         dur = t1 - t0
         pid = self._phase_ids.get(phase)
@@ -173,12 +200,21 @@ class Tracer:
         self._fl_shard[i] = shard
         self._fl_t0[i] = t0 - self._epoch
         self._fl_dur[i] = dur
+        self._fl_req[i] = req
+        self._fl_n[i] = n
         self._seq += 1
         return dur
 
     def span(self, phase: str, shard: int = -1) -> _Span:
         """Context-manager convenience for cold call sites."""
         return _Span(self, phase, shard)
+
+    def clock(self) -> tuple[int, int]:
+        """``(perf_counter_ns, time_ns)`` read at one instant when the
+        tracer was built.  A flight record's ``t0_us`` counts from the
+        first; Unix time, the clock of ``torch.profiler``'s events, is
+        ``clock()[1] + t0_us * 1000`` ns."""
+        return self._clock
 
     # ------------------------------------------------------------------
     # Views
@@ -213,15 +249,21 @@ class Tracer:
     def flight(self, last: int | None = None,
                deterministic: bool = False) -> list[dict[str, Any]]:
         """Chronological tail of the flight ring (oldest first), each
-        span as a dict.  ``deterministic=True`` strips the wall-clock
-        fields (``t0_us`` / ``dur_us``) so two identical runs produce
-        byte-identical dumps — the flight-recorder stability contract."""
+        span as a dict.  ``deterministic=True`` keeps the fields of
+        :data:`DETERMINISTIC_FIELDS` alone, so two identical runs produce
+        byte-identical dumps — the flight-recorder stability contract.
+        The full view adds ``t0_us`` / ``dur_us``, the ``req`` and ``n``
+        given to :meth:`rec`, and ``parent``: the ``seq`` of the shortest
+        span that encloses this one and closed after it, or -1 (spans
+        nest by time on the recording thread)."""
         n = min(self._seq, self.capacity)
         if last is not None:
             n = min(n, last)
+        idx = [k % self.capacity for k in range(self._seq - n, self._seq)]
+        parents = [] if deterministic else _parents(
+            self._fl_t0[idx], self._fl_dur[idx], self._fl_seq[idx])
         out = []
-        for k in range(self._seq - n, self._seq):
-            i = k % self.capacity
+        for j, i in enumerate(idx):
             rec: dict[str, Any] = {
                 "seq": int(self._fl_seq[i]),
                 "tick": int(self._fl_tick[i]),
@@ -231,6 +273,9 @@ class Tracer:
             if not deterministic:
                 rec["t0_us"] = round(int(self._fl_t0[i]) / 1e3, 3)
                 rec["dur_us"] = round(int(self._fl_dur[i]) / 1e3, 3)
+                rec["parent"] = parents[j]
+                rec["req"] = self._fl_req[i]
+                rec["n"] = int(self._fl_n[i])
             out.append(rec)
         return out
 
@@ -244,3 +289,28 @@ class Tracer:
         self._counts.append(0)
         self._total_ns.append(0)
         return pid
+
+
+def _parents(t0: np.ndarray, dur: np.ndarray, seq: np.ndarray) -> list[int]:
+    """For each span, the ``seq`` of the shortest span that encloses it
+    (starts no later, ends no earlier) and closed after it, or -1.  Spans
+    visited by start, the longer first, against a stack of those not yet
+    ended: a span that ended before the visited one starts can enclose
+    neither it nor any later one."""
+    order = np.lexsort((-seq, -(t0 + dur), t0)).tolist()
+    t0, dur, seq = t0.tolist(), dur.tolist(), seq.tolist()
+    parent = [-1] * len(seq)
+    stack: list[int] = []
+    for j in order:
+        a, b, s = t0[j], t0[j] + dur[j], seq[j]
+        while stack and t0[stack[-1]] + dur[stack[-1]] < a:
+            stack.pop()
+        best = -1
+        for k in stack:
+            if t0[k] + dur[k] >= b and seq[k] > s and (
+                    best < 0 or dur[k] < dur[best]):
+                best = k
+        if best >= 0:
+            parent[j] = seq[best]
+        stack.append(j)
+    return parent

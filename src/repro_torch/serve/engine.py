@@ -55,7 +55,7 @@ from repro_torch.compress.tree import dequantize_tree, quantize_tree
 from repro_torch.device import resolve_device
 from repro_torch.kernels.q15_matmul.ops import as_scale, q15_matmul
 from repro_torch.models import transformer as T
-from repro_torch.obs import NULL_OBS, Observability
+from repro_torch.obs import NULL_OBS, NULL_TRACER, Observability
 from repro_torch.pytree import tree_map
 from repro_torch.serve.scheduler import HostProgram, SlotScheduler, TickReport
 
@@ -97,9 +97,10 @@ class Engine:
         self.cfg = cfg
         self.scfg = scfg = serve_cfg or ServeConfig()
         self.device = dev = resolve_device(device)
-        # spans lm.prefill / lm.decode / lm.tick, the lm.tick_us histogram
-        # and the lm.tokens_generated counter; NULL_OBS keeps every hook a
-        # no-op
+        # spans lm.tick / lm.prefill / lm.decode / lm.forward (model.* per
+        # layer while the tracer's ``detail`` is on), the lm.tick_us
+        # histogram and the lm.tokens_generated counter; NULL_OBS keeps
+        # every hook a no-op
         self._obs = NULL_OBS if obs is None else obs
         self._tracer = self._obs.tracer
         params = tree_map(lambda t: t.to(dev), params)
@@ -157,14 +158,12 @@ class Engine:
             raise ValueError(f"prompt must be 1-D, got {tokens.shape}")
         if not 1 <= max_new <= self.scfg.max_len:
             raise ValueError(f"max_new must be in [1, {self.scfg.max_len}]")
-        n_extra = 0            # vlm patch embeddings occupy cache positions
-        if extra and "patch_embeds" in extra:
-            n_extra = int(np.shape(extra["patch_embeds"])[1])
-        if tokens.shape[0] + n_extra + max_new - 1 > self.scfg.max_len:
+        s = _positions(tokens, extra)
+        if s + max_new - 1 > self.scfg.max_len:
             raise ValueError(
-                f"prompt ({tokens.shape[0]} tokens + {n_extra} patch "
-                f"positions) + max_new ({max_new}) exceeds "
-                f"max_len={self.scfg.max_len}")
+                f"prompt ({tokens.shape[0]} tokens + "
+                f"{s - tokens.shape[0]} patch positions) + max_new "
+                f"({max_new}) exceeds max_len={self.scfg.max_len}")
         rid = request_id if request_id is not None \
             else f"r{next(self._rid_counter)}"
         self.sched.submit(rid, LMRequest(rid, tokens, int(max_new), extra))
@@ -259,15 +258,20 @@ class Engine:
             batch.update({k: torch.as_tensor(v, device=self.device)
                           for k, v in req.extra.items()})
         # lm.prefill and lm.decode end after sampling, whose copy to the
-        # host waits for the device: each span holds the work it queued
-        t0 = self._tracer.t()
+        # host waits for the device: each span holds the work it queued.
+        # lm.forward inside each ends once the model and the head are
+        # enqueued, so the rest of its parent is sampling and the wait.
+        tr = self._tracer
+        t0 = tr.t()
         out, self.cache = T.prefill_into_slot(
             self.cfg, self.params, self.cache, batch, slot,
-            return_hidden=self._quant_head)
+            return_hidden=self._quant_head, tracer=self._layer_tracer())
         logits = self._head_logits(out) if self._quant_head \
             else out[:, -1, :]
+        tr.rec("lm.forward", t0)
         first = self._sample(logits)[0]
-        self._tracer.rec("lm.prefill", t0)
+        tr.rec("lm.prefill", t0, req=request_id,
+               n=_positions(req.tokens, req.extra))
         self._out[slot, 0] = first
         self._emitted[slot] = 1
         self._budget[slot] = req.max_new
@@ -280,17 +284,19 @@ class Engine:
     def _advance(self, resident: np.ndarray) -> TickReport:
         need = resident & ~self._eos_done & (self._emitted < self._budget)
         if need.any():
-            t0 = self._tracer.t()
+            rows = np.nonzero(need)[0]
+            tr = self._tracer
+            t0 = tr.t()
             out, self.cache = T.decode_step_slotted(
                 self.cfg, self.params, self.cache,
                 torch.as_tensor(self._last, device=self.device),
                 torch.as_tensor(need, device=self.device),
-                return_hidden=self._quant_head)
+                return_hidden=self._quant_head, tracer=self._layer_tracer())
             logits = self._head_logits(out) if self._quant_head \
                 else out[:, 0, :]
+            tr.rec("lm.forward", t0)
             nxt = self._sample(logits)                    # (S,) batched
-            self._tracer.rec("lm.decode", t0)
-            rows = np.nonzero(need)[0]
+            tr.rec("lm.decode", t0, n=rows.size)
             self._out[rows, self._emitted[rows]] = nxt[rows]
             self._emitted[rows] += 1
             self._last[rows, 0] = nxt[rows]
@@ -325,6 +331,11 @@ class Engine:
     # ------------------------------------------------------------------
     # Internals
     # ------------------------------------------------------------------
+    def _layer_tracer(self):
+        """The tracer the model records its per-layer spans on: the
+        engine's while its ``detail`` switch is on, else none."""
+        return self._tracer if self._tracer.detail else NULL_TRACER
+
     def _head_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """The sampling head over the integer weights through
         ``q15_matmul``.  hidden: (n, s, D); uses the last position.
@@ -339,3 +350,12 @@ class Engine:
         probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(
             torch.int32).cpu().numpy()
+
+
+def _positions(tokens: np.ndarray, extra: dict | None) -> int:
+    """The cache positions a prompt fills: its tokens, and a vlm's patch
+    embeddings in front of them."""
+    n = int(tokens.shape[0])
+    if extra and "patch_embeds" in extra:
+        n += int(np.shape(extra["patch_embeds"])[1])
+    return n

@@ -106,8 +106,9 @@ class SlotScheduler:
         self.program = program
         self.admit_policy = admit_policy
         # tick-phase tracing seam (repro_torch.obs): admission work is spanned
-        # as "sched.admit" only when something is actually admissible, so
-        # the idle-queue fast path never takes a timestamp
+        # as "sched.admit", with the requests it placed, only when something
+        # is actually admissible, so the idle-queue fast path never takes a
+        # timestamp
         self.tracer = NULL_TRACER if tracer is None else tracer
         self.shard = -1     # fleet shard index tag for spans (set by owner)
         self.resident = np.zeros(max_slots, bool)
@@ -265,10 +266,12 @@ class SlotScheduler:
         if self.admit_policy == "all_free" and self.resident.any():
             return
         t0 = self.tracer.t()
+        placed = 0
         while self._free and self._pending:
             rid = self._pending.popleft()
             self._place(rid, self._free.pop())
-        self.tracer.rec("sched.admit", t0, self.shard)
+            placed += 1
+        self.tracer.rec("sched.admit", t0, self.shard, n=placed)
 
     def _place(self, request_id: str, slot: int) -> None:
         payload = self._payloads.pop(request_id)

@@ -9,8 +9,10 @@ mamba2-780m (``ssm``), zamba2-1.2b (``hybrid``) and olmoe-1b-7b and
 moonshot-v1-16b-a3b (``moe``: at the no-drop capacity factor of the
 reference's ``tests/test_serve_engine.py``, and once at the default 1.25,
 where prefills drop tokens in both packages); mixed budgets, cancels, the ``eos_id`` stop, the
-``obs=`` spans and counter; ``quantize_tree`` / ``dequantize_tree``
-bitwise the reference's; temperature sampling valid and seeded."""
+``obs=`` spans and counter, the spans' request ids, counts and parents,
+and the per-layer spans of the tracer's ``detail`` switch (greedy tokens
+unchanged by it); ``quantize_tree`` / ``dequantize_tree`` bitwise the
+reference's; temperature sampling valid and seeded."""
 import dataclasses
 import functools
 
@@ -32,7 +34,7 @@ from repro_torch import weights
 from repro_torch.compress.tree import (dequantize_tree, quantize_tree,
                                        tree_size_report)
 from repro_torch.models import transformer as T
-from repro_torch.obs import Observability
+from repro_torch.obs import Observability, Tracer
 from repro_torch.pytree import tree_leaves
 from repro_torch.serve.engine import Engine, ServeConfig
 
@@ -249,6 +251,93 @@ def test_obs_spans_and_token_counter():
     assert snap["counters"]["lm.tokens_generated"] == decoded
     assert snap["histograms"]["lm.tick_us"]["count"] == \
         eng.stats()["scheduler"]["ticks"]
+
+
+def traced_run(arch, tracer, quant_bits=16):
+    """Five requests of mixed prompt lengths and budgets, submitted as
+    ``q0``..``q4``, through 2 slots with ``tracer`` attached (none
+    without one). -> (their tokens, the engine's stats)."""
+    _, _, cfg, np_params, _ = setup(arch)
+    obs = None if tracer is None else Observability(tracer=tracer)
+    eng = Engine(cfg, weights.lm_params_from_numpy(np_params, "cpu"),
+                 ServeConfig(max_len=32, max_slots=2,
+                             quant_bits=quant_bits), obs=obs, device="cpu")
+    rng = np.random.default_rng(7)
+    for i, (s, new) in enumerate(zip(PROMPTS, BUDGETS)):
+        eng.submit(rng.integers(0, cfg.vocab_size, s), new,
+                   request_id=f"q{i}")
+    eng.run()
+    return [eng.result(f"q{i}") for i in range(len(PROMPTS))], eng.stats()
+
+
+PROMPTS, BUDGETS = (5, 9, 3, 7, 6), (4, 2, 5, 3, 4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-780m"])
+def test_spans_carry_request_ids_counts_and_parents(arch):
+    """``lm.prefill`` names its request and counts its prompt positions,
+    in admission order; ``lm.decode`` counts the rows it advanced;
+    ``sched.admit`` the requests it placed; each prefill and decode holds
+    one ``lm.forward``."""
+    tr = Tracer(capacity=1024)
+    _, st = traced_run(arch, tr)
+    fl = tr.flight()
+    by_seq = {r["seq"]: r for r in fl}
+    of = lambda phase: [r for r in fl if r["phase"] == phase]
+    assert [r["req"] for r in of("lm.prefill")] == \
+        [f"q{i}" for i in range(len(PROMPTS))]
+    assert [r["n"] for r in of("lm.prefill")] == list(PROMPTS)
+    assert sum(r["n"] for r in of("lm.decode")) == \
+        st["tokens_generated"] - st["prefills"]
+    assert len(of("lm.decode")) == st["decode_ticks"]
+    assert sum(r["n"] for r in of("sched.admit")) == st["prefills"]
+    fwd = of("lm.forward")
+    assert len(fwd) == st["prefills"] + st["decode_ticks"]
+    parents = [by_seq[r["parent"]]["phase"] for r in fwd]
+    assert sorted(parents) == sorted(["lm.prefill"] * st["prefills"]
+                                     + ["lm.decode"] * st["decode_ticks"])
+    assert len({r["parent"] for r in fwd}) == len(fwd)
+    assert not [r for r in fl if r["phase"].startswith("model.")]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b",
+                                  "qwen2-1.5b"])
+def test_model_spans_only_under_detail(arch):
+    """With the tracer's ``detail`` on, every model call holds one span
+    per layer (``model.mamba``; ``model.attn`` for an attention block,
+    the hybrid's shared block among them) and every prefill one
+    ``model.ssd`` per mamba layer; greedy tokens stay bit for bit those
+    of an untraced engine."""
+    cfg = setup(arch)[2]
+    want, _ = traced_run(arch, None)
+    tr = Tracer(capacity=4096)
+    tr.detail = True
+    got, st = traced_run(arch, tr)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    fl = tr.flight()
+    by_seq = {r["seq"]: r for r in fl}
+    up = lambda r: by_seq[r["parent"]]
+    mamba = cfg.num_layers if cfg.uses_mamba else 0
+    attn = (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
+            else 0 if cfg.uses_mamba else cfg.num_layers)
+    forwards = st["prefills"] + st["decode_ticks"]
+    layers = [r for r in fl if r["phase"] in ("model.mamba", "model.attn")]
+    assert all(up(r)["phase"] == "lm.forward" for r in layers)
+    assert sum(r["phase"] == "model.mamba" for r in layers) == \
+        mamba * forwards
+    assert sum(r["phase"] == "model.attn" for r in layers) == attn * forwards
+    ssd = [r for r in fl if r["phase"] == "model.ssd"]
+    assert len(ssd) == mamba * st["prefills"]
+    assert all(up(r)["phase"] == "model.mamba"
+               and up(up(up(r)))["phase"] == "lm.prefill" for r in ssd)
+    tr.detail = False
+    last = fl[-1]["seq"]
+    off, _ = traced_run(arch, tr)
+    for a, b in zip(off, want):
+        np.testing.assert_array_equal(a, b)
+    assert not [r for r in tr.flight() if r["seq"] > last
+                and r["phase"].startswith("model.")]
 
 
 @pytest.mark.parametrize("bits", [8, 16, 7, 15])

@@ -31,6 +31,7 @@ from repro_torch.obs import (BUCKET_EDGES_US, NULL_OBS, NULL_TRACER,
                              FlightRecorder, Histogram, MetricsRegistry,
                              Observability, Tracer, check_conservation,
                              merge_histogram_counts, validate_snapshot)
+from repro_torch.obs.trace import DETERMINISTIC_FIELDS
 from repro_torch.serve.fleet import FleetConfig, FleetEngine, crash_matrix
 from repro_torch.serve.streaming import StreamingConfig, StreamingEngine
 from torchharness import fold_log, np_params, port_crash_schedule
@@ -146,6 +147,125 @@ def test_null_tracer_is_allocation_free():
         tracemalloc.stop()
     assert big <= small + 64, (
         f"NullTracer allocates per call: {small}B/1k vs {big}B/10k calls")
+
+
+def test_tracer_records_req_and_n():
+    tr = Tracer(capacity=8)
+    rid = "w17"
+    tr.rec("lm.prefill", tr.t(), req=rid, n=4096)
+    tr.rec("sched.admit", tr.t(), 2, n=3)
+    tr.rec("fleet.tick", tr.t())
+    a, b, c = tr.flight()
+    assert a["req"] is rid and a["n"] == 4096 and a["shard"] == -1
+    assert b["req"] is None and b["n"] == 3 and b["shard"] == 2
+    assert c["req"] is None and c["n"] == 0
+    # a wrapped slot forgets the request it held
+    for _ in range(8):
+        tr.rec("p", tr.t())
+    assert all(r["req"] is None and r["n"] == 0 for r in tr.flight())
+
+
+def test_tracer_parent_of_nested_and_sibling_spans():
+    tr = Tracer(capacity=64)
+    t_out = tr.t()
+    t_a = tr.t()
+    t_in = tr.t()
+    tr.rec("inner", t_in)                      # seq 0
+    tr.rec("a", t_a)                           # seq 1
+    t_b = tr.t()
+    tr.rec("b", t_b)                           # seq 2: a's sibling
+    tr.rec("outer", t_out)                     # seq 3
+    t_top = tr.t()
+    tr.rec("top", t_top)                       # seq 4: outer's sibling
+    t0 = tr.t()                                # one t0 for two spans
+    tr.rec("first", t0)                        # seq 5
+    tr.rec("second", t0)                       # seq 6 encloses seq 5
+    parent = {r["phase"]: r["parent"] for r in tr.flight()}
+    assert parent == {"inner": 1, "a": 3, "b": 3, "outer": -1, "top": -1,
+                      "first": 6, "second": -1}
+    # a tail whose enclosing span has not been recorded yet
+    t_open = tr.t()
+    tr.rec("child", tr.t())
+    assert tr.flight(last=1)[0]["parent"] == -1
+    tr.rec("late", t_open)
+    assert tr.flight(last=2)[0]["parent"] == 8
+
+
+def test_parents_shortest_enclosing_span_closed_later():
+    from repro_torch.obs.trace import _parents
+    # (t0, dur, seq): identical spans (the later-closed one is the
+    # parent), two spans that overlap without nesting, and the shortest
+    # of the four that enclose seq 2
+    spans = [(10, 5, 0), (10, 5, 1), (0, 100, 9), (5, 40, 3),
+             (12, 39, 4), (20, 2, 2), (0, 200, 10)]
+    t0, dur, seq = (np.array(c, np.int64) for c in zip(*spans))
+    assert _parents(t0, dur, seq) == [1, 3, 10, 9, 9, 4, -1]
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_tracer_rec_with_req_and_n_is_allocation_free(enabled):
+    """An enabled ``rec(..., req=rid, n=k)`` keeps a reference to the
+    caller's id and writes preallocated rings: nothing grows per call."""
+    tr = Tracer(capacity=64) if enabled else NULL_TRACER
+    rid, k = "w3", 4096
+
+    def burst(n):
+        for _ in range(n):
+            t0 = tr.t()
+            tr.rec("lm.prefill", t0, req=rid, n=k)
+            tr.rec("lm.decode", t0, n=8)
+
+    def leaked_by(n):
+        before, _ = tracemalloc.get_traced_memory()
+        burst(n)
+        after, _ = tracemalloc.get_traced_memory()
+        return after - before
+
+    burst(200)                       # the rings hold the phases already
+    tracemalloc.start()
+    try:
+        burst(100)
+        small, big = leaked_by(1000), leaked_by(10000)
+    finally:
+        tracemalloc.stop()
+    assert big <= small + 64, (
+        f"rec(req=, n=) allocates per call: {small}B/1k vs {big}B/10k")
+
+
+def test_tracer_clock_puts_spans_on_unix_time():
+    import time
+    tr = Tracer()
+    perf0, unix0 = tr.clock()
+    assert tr.clock() == (perf0, unix0)
+    t0 = tr.t()
+    wall = time.time_ns()
+    tr.rec("p", t0)
+    # a flight record's t0_us counts from the clock's counter reading
+    assert abs(tr.flight()[0]["t0_us"] * 1e3 - (t0 - perf0)) <= 1
+    # and Unix time follows from it within the reads' own spread
+    assert abs(unix0 + tr.flight()[0]["t0_us"] * 1e3 - wall) < 1e6
+    assert NULL_TRACER.clock() == (0, 0)
+    assert NULL_TRACER.detail is False and Tracer().detail is False
+
+
+def test_tracer_deterministic_view_keeps_the_reference_fields():
+    """``req``, ``n`` and ``parent`` enrich the full view only: the
+    deterministic view is the reference's, span for span."""
+    tr, jtr = Tracer(capacity=16), J.Tracer(capacity=16)
+    for t in (tr, jtr):
+        t.set_tick(5)
+    t0 = tr.t()
+    tr.rec("lm.forward", tr.t())
+    tr.rec("lm.prefill", t0, req="r0", n=12)
+    tr.rec("sched.admit", tr.t(), 1, n=1)
+    jtr.rec("lm.forward", jtr.t())
+    jtr.rec("lm.prefill", jtr.t())
+    jtr.rec("sched.admit", jtr.t(), 1)
+    det = tr.flight(deterministic=True)
+    assert det == jtr.flight(deterministic=True)
+    assert all(tuple(r) == DETERMINISTIC_FIELDS for r in det)
+    assert set(tr.flight()[0]) == set(DETERMINISTIC_FIELDS) | {
+        "t0_us", "dur_us", "parent", "req", "n"}
 
 
 # ---------------------------------------------------------------------------
@@ -650,23 +770,56 @@ def test_lm_engine_obs_spans():
         eng.stats()["tokens_generated"] - 3
 
 
+def test_train_step_spans_and_unchanged_losses():
+    """``make_train_step(..., tracer=)`` records its forward, backward and
+    update as three spans a step, and trains as the untraced step."""
+    from repro_torch import configs as C
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    cfg = C.reduced(C.get("mamba2-780m"), compute_dtype="float32",
+                    param_dtype="float32")
+    acfg = opt.AdamConfig(lr=1e-2, warmup_steps=1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17),
+                         generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def train(tracer):
+        params = T.init(cfg, torch.Generator().manual_seed(0))
+        state = opt.init(params, acfg)
+        step = registry.make_train_step(cfg, acfg, tracer=tracer)
+        losses = []
+        for _ in range(3):
+            params, state, met = step(params, state, batch)
+            losses.append(float(met["loss"]))
+        return losses
+
+    tr = Tracer()
+    assert train(tr) == train(None)
+    assert [r["phase"] for r in tr.flight()] == [
+        "train.forward", "train.backward", "train.update"] * 3
+    assert all(r["parent"] == -1 for r in tr.flight())
+    with pytest.raises(ValueError, match="no tracer with a mesh"):
+        registry.make_train_step(cfg, acfg, mesh=object(), tracer=tr)
+
+
 # ---------------------------------------------------------------------------
 # span phase-name registry (repro_torch.obs.phases)
 # ---------------------------------------------------------------------------
 
 def test_every_serving_span_phase_is_registered():
     """Every phase literal recorded through the tracer API in the port's
-    serving and deploy trees is registered in
-    ``repro_torch.obs.phases.PHASES``, and the registry is the
-    reference's."""
+    serving, deploy and model trees (the model's per-layer spans and the
+    training step's) is registered in ``repro_torch.obs.phases.PHASES``,
+    and the registry is the reference's plus the port's own group."""
     import ast
     import os
-    from repro_torch.obs.phases import PHASES
+    from repro_torch.obs.phases import PHASES, PORT_PHASES
 
     src_root = os.path.join(os.path.dirname(__file__), "..", "src",
                             "repro_torch")
     used = {}
-    for sub in ("serve", "deploy"):
+    for sub in ("serve", "deploy", "models"):
         for dirpath, _, files in os.walk(os.path.join(src_root, sub)):
             for fn in sorted(files):
                 if not fn.endswith(".py"):
@@ -685,9 +838,10 @@ def test_every_serving_span_phase_is_registered():
                             f"{path}:{node.lineno}")
     unregistered = {p: w for p, w in used.items() if p not in PHASES}
     assert not unregistered, unregistered
-    assert {"fleet.tick", "engine.kernel", "lm.prefill",
-            "verify.qvm"} <= set(used)
-    assert PHASES == J.PHASES
+    assert {"fleet.tick", "engine.kernel", "lm.prefill", "lm.forward",
+            "model.mamba", "train.update", "verify.qvm"} <= set(used)
+    assert PHASES - set(PORT_PHASES) == J.PHASES
+    assert set(PORT_PHASES).isdisjoint(J.PHASES)
 
 
 def test_phase_registry_api():
@@ -698,5 +852,6 @@ def test_phase_registry_api():
     with pytest.raises(ValueError):
         assert_registered("engine.tick_typo")
     groups = (P.ENGINE_PHASES + P.FLEET_PHASES + P.LM_PHASES
-              + P.SCHED_PHASES + P.VERIFY_PHASES)
+              + P.SCHED_PHASES + P.VERIFY_PHASES + P.PORT_PHASES)
+    assert registered("model.ssd") and registered("train.backward")
     assert len(groups) == len(set(groups)) == len(PHASES)
