@@ -148,7 +148,9 @@ Phases (any failure exits non-zero; nothing is caught):
     with 8 slots, ``max_len`` 512 and ``quant_bits`` 16 serving 24
     requests from seed 0 (prompts of 16-128 tokens, ``max_new`` 8-64):
     every request completes with exactly its budget of tokens, each in
-    [0, vocab); K5 launches equal prefills + decode ticks; every head
+    [0, vocab); K5 launches from the host equal prefills + eager decode
+    ticks (the first; the rest replay the captured graph), and one K5
+    output reaches sampling per prefill and per tick; every head
     call's K5 output is held against the plain version on the same input
     (1e-5 x max|plain|, argmax equal wherever the plain logits' top-2
     margin exceeds twice the measured difference); tokens/s, prefill and
@@ -163,7 +165,7 @@ Phases (any failure exits non-zero; nothing is caught):
     requests from seed 0 with prompts of 64-1000 tokens (one to four SSD
     chunks, ragged tails) and ``max_new`` 8-64; every mamba layer's
     prefill scan is K6: K6 launches = prefills x 48, K5 launches =
-    prefills + decode ticks, and every K6 and K5 call is held against its
+    prefills + eager decode ticks, and every K6 and K5 call is held against its
     plain version on the same inputs (phase 4's bounds); tokens/s, the
     engine's spans, peak memory, a profiled window of 10 decode ticks and
     one profiled prefill of a 1000-token prompt (host wall, the device's
@@ -245,7 +247,7 @@ Phases (any failure exits non-zero; nothing is caught):
     16 requests with prompts of 16-128 tokens and ``max_new`` 8-32, each
     with its own (1, 256, 8192) bfloat16 ``patch_embeds`` passed as
     ``extra``; the same completion checks as phase 12, K5 launches =
-    prefills + decode ticks, every head output within 1e-5 x max|plain|;
+    prefills + eager decode ticks, every head output within 1e-5 x max|plain|;
     then K5 at this (8,192 x 128,256) int16 head against its plain
     version at M = 1, 8 and 64 (each at the plan ``Q15Matmul.plan``
     reports) and timed at M = 8 beside the ``torch.mm`` yardstick; and,
@@ -279,7 +281,7 @@ Phases (any failure exits non-zero; nothing is caught):
     stand-ins, bitwise those the trainer saved (the bf16 embedding
     included), the trainer freed, then served through
     ``Engine(quant_bits=16)``: 8 requests over 8 slots, K5 launches =
-    prefills + decode ticks, every head output within 1e-5 x max|plain|.
+    prefills + eager decode ticks, every head output within 1e-5 x max|plain|.
     (c) Qwen2-1.5B's width at 2 of 28 layers, seq 512 x 2, 6 steps with
     checkpoints every 2 and a fault before step 5: the history replays
     step 4 after one restart, and every loss and grad_norm is bitwise
@@ -2614,8 +2616,11 @@ def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
     (the head) and every K6 call (each mamba layer's prefill scan) is
     recorded and held against its plain version on the same inputs after
     the run; every request must complete with its budget of tokens in
-    [0, vocab); K5 launches = prefills + decode ticks, K6 launches =
-    prefills x layers (0 without mamba layers).  Returns the launches, the
+    [0, vocab); K5 launches from the host = prefills + eagerly run decode
+    ticks (a replayed tick's K5 runs inside the captured graph, which
+    ``lm_profiled_ticks`` counts from the device trace), K5 outputs =
+    prefills + decode ticks, K6 launches = prefills x layers (0 without
+    mamba layers).  Returns the launches, the
     largest differences and the engine."""
     from repro_torch.kernels.q15_matmul.kernel import Q15Matmul
     from repro_torch.kernels.q15_matmul.kernel import plain as k5_plain
@@ -2640,18 +2645,29 @@ def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
         fail(f"{label}: engine head {tuple(wq.shape)} {wq.dtype}, want "
              f"({cfg.d_model}, {cfg.vocab_size}) int16")
     heads, scans = [], []       # (inputs, outputs) of every K5 / K6 call
-    head, scan = eng._head_logits, ssd_ops.ssd_scan
+    head, scan, sample = eng._head_logits, ssd_ops.ssd_scan, eng._sample
+    head_in = {}
 
     def recorded_head(hidden):
         out = head(hidden)
-        heads.append((hidden[:, -1, :].float(), out))
+        head_in["graph" if torch.cuda.is_current_stream_capturing()
+                else "eager"] = hidden
         return out
+
+    def recorded_sample(logits):
+        # every K5 output reaches sampling; a replayed decode tick rewrites
+        # the captured head's input and output in place, so both are
+        # copied here, while they hold this call's values
+        x = head_in["graph" if logits is eng._graph_logits else "eager"]
+        heads.append((x[:, -1, :].float().clone(), logits.clone()))
+        return sample(logits)
 
     def recorded_scan(x, dt, A, B, C, *, chunk):
         y, st = scan(x, dt, A, B, C, chunk=chunk)
         scans.append((x, dt, A, B, C, chunk, y, st))
         return y, st
     eng._head_logits, ssd_ops.ssd_scan = recorded_head, recorded_scan
+    eng._sample = recorded_sample
     Q15Matmul.launches = SSDScan.launches = 0   # this path's run only
     rids = [eng.submit(toks, new, extra=extras[i] if extras else None)
             for i, (toks, new) in enumerate(reqs)]
@@ -2660,7 +2676,7 @@ def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k5, k6 = Q15Matmul.launches, SSDScan.launches
-    eng._head_logits, ssd_ops.ssd_scan = head, scan
+    eng._head_logits, ssd_ops.ssd_scan, eng._sample = head, scan, sample
     st = eng.stats()
     spans = obs.tracer.phase_stats()
     for rid, (toks, new) in zip(rids, reqs):
@@ -2672,9 +2688,15 @@ def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
     if st["prefills"] != len(reqs) or st["tokens_generated"] != sum(
             new for _, new in reqs):
         fail(f"{label}: engine stats {st}")
-    if k5 != st["prefills"] + st["decode_ticks"] or len(heads) != k5:
-        fail(f"{label}: K5 launches {k5}, head calls {len(heads)}, prefills "
-             f"+ decode ticks {st['prefills'] + st['decode_ticks']}")
+    counters = obs.metrics.snapshot()["counters"]
+    eager = counters.get("lm.decode_eager_ticks", 0)
+    replays = counters.get("lm.decode_graph_replays", 0)
+    if eager + replays != st["decode_ticks"] or \
+            k5 != st["prefills"] + eager or \
+            len(heads) != st["prefills"] + st["decode_ticks"]:
+        fail(f"{label}: K5 launches {k5}, head outputs {len(heads)}, "
+             f"prefills {st['prefills']}, decode ticks {st['decode_ticks']} "
+             f"({eager} eager, {replays} replayed)")
     want_k6 = st["prefills"] * cfg.num_layers if cfg.uses_mamba else 0
     if k6 != want_k6 or len(scans) != k6:
         fail(f"{label}: K6 launches {k6}, scan calls {len(scans)}, want "
@@ -2737,8 +2759,9 @@ def serve_lm(torch, np, dev, card, cfg, params, *, slots: int,
           f"peak device memory {peak:,} B ({peak / 2**30:.2f} GiB, of which "
           f"{held / 2**30:.2f} GiB the recorded K5 / K6 inputs and outputs "
           f"kept for the check); card {card}")
-    print(f"{label}: K5 launched {k5} times = prefills + decode ticks, every "
-          f"head output within {K5_REL} x max|plain| of the plain version "
+    print(f"{label}: K5 launched {k5} times from the host = prefills + "
+          f"{eager} eager decode ticks ({replays} ticks replayed from the "
+          f"captured graph); every one of {len(heads)} head outputs within {K5_REL} x max|plain| of the plain version "
           f"(largest |diff| {k5_err:.3e}), argmax equal on every row whose "
           f"top-2 margin exceeds twice its difference ({close} of {rows} "
           f"rows under that margin); " + (
@@ -2849,6 +2872,7 @@ def lm_profiled_ticks(torch, np, eng, vocab: int, prompt: int, budget: int,
     (nothing admitted or released) run under torch.profiler (host and
     device): the device's busy share of the host wall time (an upper
     estimate of the idle share, as in phase 6), K5's device time per launch
+    (one K5 kernel a tick in the trace, launched by the graph's replay)
     and the device time by kernel.  The requests are cancelled afterwards."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(SEED + 2)
@@ -2874,6 +2898,9 @@ def lm_profiled_ticks(torch, np, eng, vocab: int, prompt: int, budget: int,
     k5 = kernel_device_us(prof, "q15_matmul_kernel")
     if not evs or k5 is None:
         fail(f"{label}: the trace holds no device event of q15_matmul_kernel")
+    if k5[0] != LM_PROFILE_TICKS:
+        fail(f"{label}: {k5[0]} q15_matmul_kernel device events in "
+             f"{LM_PROFILE_TICKS} decode ticks, want one a tick")
     busy = busy_us(evs)
     by_name = {}
     for e in evs:

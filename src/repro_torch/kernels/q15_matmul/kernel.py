@@ -63,7 +63,9 @@ class Q15Matmul:
     int8/int16, scale a 0-dim float32 tensor, all on one device -> (M, N)
     in ``out_dtype`` (float32 or bfloat16).  ``launches`` counts kernel
     launches of every instance, and only those: the CPU plain path does
-    not count."""
+    not count, nor a call while the stream is being captured into a CUDA
+    graph, which launches nothing (the graph's replays launch it on the
+    device, and only a device trace sees them)."""
 
     launches = 0
     _lib = None
@@ -105,7 +107,7 @@ class Q15Matmul:
         if err != 0:
             msg = self._lib.q15_matmul_error_string(err).decode()
             raise RuntimeError(f"{KERNEL} launch failed ({err}): {msg}")
-        if m and n:
+        if m and n and not torch.cuda.is_current_stream_capturing():
             Q15Matmul.launches += 1
         return out
 

@@ -33,8 +33,9 @@ float32 SSM states and ``(L, B, 3, width)`` conv tails, with one shared
 fill level ``len`` (a Python int here) or, for continuous batching, a
 per-slot fill level ``pos`` ((S,) int32 tensor).  A vlm cache holds the
 patch positions too: its fill level counts them.  Decode writes the cache
-tensors in place and returns the cache dict; an inactive slot keeps its
-cache rows and ``pos`` bit for bit.
+tensors in place (the slotted decode its ``pos`` too) and returns the
+cache dict; an inactive slot keeps its cache rows and ``pos`` bit for
+bit.
 
 Over a mesh (``launch.mesh``) every function runs on every rank, on the
 rank's batch rows (the batch split over ``pod`` x ``data``) and on the
@@ -903,8 +904,11 @@ def decode_step_slotted(cfg, params, cache, tokens, active=None, *,
     Every slot advances at its own ``cache["pos"][b]``.  ``active``: (S,)
     bool; inactive slots keep their cache rows (K/V, SSM state, conv tail)
     and ``pos`` bit for bit (their outputs are computed and discarded, so
-    a tick has one shape whatever the occupancy).  Audio has no decode
-    path and raises ``ValueError``.  ``tracer``: per-layer spans
+    a tick has one shape whatever the occupancy).  Every cache tensor,
+    ``pos`` included, is written in place and the cache dict returned is
+    the one given: a tick reads and writes the same addresses every time,
+    as a CUDA graph of it needs (``serve/engine.py``).  Audio has no
+    decode path and raises ``ValueError``.  ``tracer``: per-layer spans
     (:func:`_decode_blocks`)."""
     if cfg.family == "audio":
         raise ValueError(f"no slotted decode path for family "
@@ -920,7 +924,7 @@ def decode_step_slotted(cfg, params, cache, tokens, active=None, *,
                                              active=active, window=window,
                                              compute_dtype=cfg.cdtype),
                        active, tracer=tracer)
-    cache = dict(cache, pos=pos + active.to(torch.int32))
+    pos.add_(active.to(torch.int32))
     if return_hidden:
         return x, cache
     return _logits(cfg, params, x), cache

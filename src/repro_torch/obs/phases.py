@@ -40,13 +40,13 @@ VERIFY_PHASES = (
     "verify.numerics",
 )
 
-#: The port's own phases: the LM engine's model call (serve/engine.py),
-#: the per-layer spans it records while ``Tracer.detail`` is on
-#: (models/transformer.py), and the training step's three parts
-#: (models/registry.py).
+#: The port's own phases: the LM engine's model call and its capture of
+#: the decode tick as a CUDA graph (serve/engine.py), the per-layer spans
+#: it records while ``Tracer.detail`` is on (models/transformer.py), and
+#: the training step's three parts (models/registry.py).
 PORT_PHASES = (
-    "lm.forward", "model.mamba", "model.ssd", "model.attn",
-    "train.forward", "train.backward", "train.update",
+    "lm.forward", "lm.graph_capture", "model.mamba", "model.ssd",
+    "model.attn", "train.forward", "train.backward", "train.update",
 )
 
 #: Every registered span phase.

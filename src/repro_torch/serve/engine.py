@@ -18,8 +18,18 @@ reference's does) while a decode tick never drops.
   admission writes one sequence's prefix into its slot
   (``prefill_into_slot``) while the neighbours keep decoding, and every
   tick is one ``decode_step_slotted`` over all slots whatever the
-  occupancy.  The port runs eagerly: there is no per-prompt-shape
-  compile cache.
+  occupancy.  Prefills run eagerly: there is no per-prompt-shape compile
+  cache.
+* **One CUDA graph a decode tick**: the tick has one shape, reads its
+  tokens and active rows from device buffers written in place, and
+  writes the cache in place, so on the card the engine captures it once
+  (model, head and all: ``lm.graph_capture``, after the first tick has
+  run eagerly on the capture's stream) and replays it on every later
+  tick; sampling stays outside.  On the CPU, and while the tracer's
+  ``detail`` asks for per-layer spans, which a replay does not record,
+  every tick runs eagerly.  The metrics counters
+  ``lm.decode_graph_replays`` and ``lm.decode_eager_ticks`` count both
+  kinds.
 * **Preallocated output**: generated tokens land in a fixed (S, max_len)
   int32 host buffer at a per-slot cursor.
 * **Quantized serving** (``quant_bits`` 8 or 16):
@@ -58,6 +68,9 @@ from repro_torch.models import transformer as T
 from repro_torch.obs import NULL_OBS, NULL_TRACER, Observability
 from repro_torch.pytree import tree_map
 from repro_torch.serve.scheduler import HostProgram, SlotScheduler, TickReport
+
+# the stream each card's engines warm up and capture their decode tick on
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 
 
 @dataclasses.dataclass
@@ -126,6 +139,12 @@ class Engine:
         self.cache = T.init_slot_cache(cfg, S, scfg.max_len,
                                        dtype=cfg.cdtype, device=dev)
         self._gen = torch.Generator(device=dev).manual_seed(scfg.seed)
+        # the decode tick's inputs on the device, written in place: a
+        # captured tick reads them at the addresses it was captured with
+        self._tok_dev = torch.zeros((S, 1), dtype=torch.int32, device=dev)
+        self._need_dev = torch.zeros((S,), dtype=torch.bool, device=dev)
+        self._graph = None          # torch.cuda.CUDAGraph of one tick
+        self._graph_logits = None   # its output, rewritten by each replay
         # --- per-slot host state (preallocated; written in place) -------
         self._out = np.zeros((S, scfg.max_len), np.int32)   # token buffer
         self._emitted = np.zeros(S, np.int64)               # out-buffer cursor
@@ -287,13 +306,9 @@ class Engine:
             rows = np.nonzero(need)[0]
             tr = self._tracer
             t0 = tr.t()
-            out, self.cache = T.decode_step_slotted(
-                self.cfg, self.params, self.cache,
-                torch.as_tensor(self._last, device=self.device),
-                torch.as_tensor(need, device=self.device),
-                return_hidden=self._quant_head, tracer=self._layer_tracer())
-            logits = self._head_logits(out) if self._quant_head \
-                else out[:, 0, :]
+            self._tok_dev.copy_(torch.from_numpy(self._last))
+            self._need_dev.copy_(torch.from_numpy(need))
+            logits = self._decode_logits()
             tr.rec("lm.forward", t0)
             nxt = self._sample(logits)                    # (S,) batched
             tr.rec("lm.decode", t0, n=rows.size)
@@ -335,6 +350,58 @@ class Engine:
         """The tracer the model records its per-layer spans on: the
         engine's while its ``detail`` switch is on, else none."""
         return self._tracer if self._tracer.detail else NULL_TRACER
+
+    def _decode_logits(self) -> torch.Tensor:
+        """One decode tick over every slot from ``_tok_dev`` and
+        ``_need_dev``: the cache advances in place -> (S, V) float32
+        logits.  A replay of the captured tick where there is one and
+        ``detail`` is off; else eagerly, and on the card with ``detail``
+        off the first tick is also captured (:meth:`_capture`)."""
+        if self._graph is not None and not self._tracer.detail:
+            self._graph.replay()
+            self._count("lm.decode_graph_replays",
+                        "decode ticks replayed from the captured graph")
+            return self._graph_logits
+        self._count("lm.decode_eager_ticks", "decode ticks run eagerly")
+        if self.device.type != "cuda" or self._tracer.detail:
+            return self._forward_tick(self._layer_tracer())
+        return self._capture()
+
+    def _forward_tick(self, tracer) -> torch.Tensor:
+        """The model's slotted decode and the head, enqueued."""
+        out, self.cache = T.decode_step_slotted(
+            self.cfg, self.params, self.cache, self._tok_dev, self._need_dev,
+            return_hidden=self._quant_head, tracer=tracer)
+        return self._head_logits(out) if self._quant_head else out[:, 0, :]
+
+    def _capture(self) -> torch.Tensor:
+        """Run this tick eagerly on the capture stream (the warm-up a
+        capture needs: the stream's cuBLAS workspace, lazy set-ups), then
+        capture the same tick on it into a CUDA graph with a private
+        memory pool, both freed with the engine; -> the eager tick's
+        logits.  One capture stream a device serves every engine, so they
+        share its workspace."""
+        main = torch.cuda.current_stream(self.device)
+        side = _CAPTURE_STREAMS.get(self.device)
+        if side is None:
+            side = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(
+                self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            logits = self._forward_tick(NULL_TRACER)
+        main.wait_stream(side)
+        tr = self._tracer
+        t0 = tr.t()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            self._graph_logits = self._forward_tick(NULL_TRACER)
+        self._graph = graph
+        tr.rec("lm.graph_capture", t0)
+        return logits
+
+    def _count(self, name: str, help: str) -> None:
+        if self._obs.metrics is not None:
+            self._obs.metrics.counter(name, help).inc()
 
     def _head_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """The sampling head over the integer weights through

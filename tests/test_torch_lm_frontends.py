@@ -179,7 +179,7 @@ def slotted_run(T_mod, cfg, p, toks, patches, conv, cache):
                             "patch_embeds": conv(patches[row:row + 1])},
             slot)
         out.append(lg)
-    out.append(cache["pos"])
+    out.append(cache["pos"] + 0)     # a copy: the port advances pos in place
     fed = [5, 7]
     for t in range(4):
         active = np.array([True, False, t != 1])
@@ -189,7 +189,7 @@ def slotted_run(T_mod, cfg, p, toks, patches, conv, cache):
                                               conv(active))
         fed[0] += 1
         fed[1] += int(active[2])
-        out += [lg, cache["pos"]]
+        out += [lg, cache["pos"] + 0]
     return out, cache
 
 

@@ -155,7 +155,7 @@ def slotted_run(T_mod, cfg, p, toks, conv, cache):
         fed[0] += 1
         fed[1] += int(active[2])
         out.append(lg)
-        out.append(cache["pos"])
+        out.append(cache["pos"] + 0)  # a copy: the port advances pos in place
     return out, cache
 
 
